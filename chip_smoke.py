@@ -8,12 +8,13 @@ Phases, each printing a line:
 1. device: requires CUDA and prints ``nvidia-smi``'s name and power limit;
 2. build: compiles the gather kernels (``multigridsolver_tpu_torch/csrc``)
    with nvcc for sm_90a;
-3. kernels: K1 (gather SpMV), K2 (take), K3 (take rows) and K4 (sharded
-   take) against their plain PyTorch versions on the card at the main
-   path's shapes (K4 at the finest sharded level of poisson1000 on four
-   shards), with their device times (CUDA events, median of 20 calls, L2
-   evicted before each), the time of one PyTorch library call computing
-   the same function, and the least time the card's memory rate allows;
+3. kernels: K1 without lanes (``gather_spmv``), K2 (take), K3 (take
+   rows) and K4 (sharded take) against their plain PyTorch versions on
+   the card at the main path's shapes (K4 at the finest sharded level of
+   poisson1000 on four shards), with their device times (CUDA events,
+   median of 20 calls, L2 evicted before each), the time of one PyTorch
+   library call computing the same function, and the least time the
+   card's memory rate allows;
 4. main path: poisson1000 (n = 10⁶) through ``to_ell`` →
    ``build_amg_setup`` → ``build_hierarchy`` → ``solve_hierarchy``
    (BiCGStab to 1e-6): in f32 with the kernels' launch counts and a
@@ -21,7 +22,15 @@ Phases, each printing a line:
    f32 for times without first-use costs, and in f64, each checked for
    status, relative residuals and iteration count, the f32 runs also for
    their level sizes;
-5. sharded path: the same f32 problem on a 4-shard row mesh on the card
+5. hybrid SpMV: K1 with lanes (``hyb_spmv``) on every level of the f32
+   and f64 hierarchies of step 4, bitwise against the route it replaced
+   (the torch lane loop, then K1 without lanes) and against its plain
+   version; on level 1 with its offsets spread past the shared-memory
+   budget (the lanes then read x through ``__ldg``); timed at the shapes
+   of levels 0 and 1 beside its plain version, the old route, the same
+   operator through cuSPARSE (``torch.mv`` on CSR) and its bound, and
+   with the x window turned off;
+6. sharded path: the same f32 problem on a 4-shard row mesh on the card
    through ``build_amg_setup_sharded`` (finest-level gathers on the halo
    exchange and K4) → ``build_hierarchy`` → ``shard_hierarchy`` (the two
    finest levels sharded) → ``solve_hierarchy``: the route of each
@@ -29,7 +38,8 @@ Phases, each printing a line:
    level, the same iteration count, every kernel launched, and the phase
    times beside the unsharded ones.
 
-The last two lines are a JSON object with the per-kernel results and
+The last two lines are a JSON object with the per-kernel results (for
+``hyb_spmv`` also the old route's and the ``__ldg`` lanes' times) and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
 sum of its launches in the first unsharded f32 run and in the sharded
 run, each counted from 0; ``launches_by_path`` gives the two apart.  Any failure exits non-zero before the
@@ -51,17 +61,22 @@ PKG = "multigridsolver_tpu_torch"
 # f32, the plan-free path): the port must reproduce them exactly
 EXPECT_LEVELS = [1000000, 294006, 86479, 25624, 7535, 2190, 624, 169]
 ITERS_RANGE = (7, 9)
-# about 10 ms at the H100's clocks: far longer than the host needs to
-# enqueue the timed calls of one kernel
+# the card's sleep ahead of the timed calls: at least about 10 ms at the
+# H100's clocks, and twice what the host takes to enqueue them, counted
+# at the SM clock's maximum (about 2 GHz)
 SLEEP_CYCLES = 20_000_000
+SM_CYCLES_PER_S = 2e9
 L2_FLUSH_BYTES = 100 << 20
 # the H100 SXM's published peaks (memory rate; float32 outside the tensor
 # cores), against which each kernel's least possible time is computed
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 SOURCE = f"{PKG}/csrc/gather.cu"
+# hyb_spmv also replaces the XLA-fused DIA pass around the TPU kernel
+# (multigridsolver_tpu/sparse/hybrid.py:223-242)
 REPLACES = {
     "gather_spmv": "multigridsolver_tpu/ops/gather_pallas.py:255",
+    "hyb_spmv": "multigridsolver_tpu/ops/gather_pallas.py:255",
     "take": "multigridsolver_tpu/ops/gather_pallas.py:300",
     "take_rows": "multigridsolver_tpu/ops/gather_pallas.py:359",
     "take_sharded": "multigridsolver_tpu/ops/gather_pallas.py:368",
@@ -88,15 +103,23 @@ def time_ms(fn, calls: int = 20) -> float:
     walks the levels finds them (a read, so the call pays for no dirty
     lines written back).  A sleep kernel queued ahead holds the
     card while the host enqueues the calls, so the host's launch costs
-    (Python checks, ctypes, the allocator) stay out of the reading."""
+    (Python checks, ctypes, the allocator) stay out of the reading; it
+    lasts twice the host's enqueue time of the calls, which for a route of
+    a hundred small launches is far longer than for one kernel."""
     import torch
     flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flush.sum()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(calls)]
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(max(SLEEP_CYCLES,
+                          int(2 * calls * enqueue_s * SM_CYCLES_PER_S)))
     for start, end in events:
         flush.sum()
         start.record()
@@ -112,6 +135,26 @@ def bound_ms(nbytes: int, flops: int = 0) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def record(res, name, shape_tag, err, fn, plain, library, nbytes, flops=0,
+           extra=None):
+    """Time ``fn`` beside its plain version, its library yardstick and the
+    ``extra`` routes ({key: callable}), log the line, and keep the first
+    shape's numbers of each kernel for the JSON line."""
+    ms, plain_ms = time_ms(fn), time_ms(plain)
+    library_ms = time_ms(library) if library is not None else None
+    more = {k: time_ms(f) for k, f in (extra or {}).items()}
+    b_ms, b_by = bound_ms(nbytes, flops)
+    r = res.setdefault(name, {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if "ms" not in r:
+        r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=b_ms, bound_by=b_by, **more)
+    log(f"kernel {name} {shape_tag}: max_abs_err={err!r} ms={ms!r} "
+        f"plain_ms={plain_ms!r} library_ms={library_ms!r} "
+        + "".join(f"{k}={v!r} " for k, v in more.items())
+        + f"bound_ms={b_ms!r} ({b_by}, {nbytes} bytes)")
 
 
 def touched(idx) -> int:
@@ -219,22 +262,10 @@ def phase_kernels(device, problem) -> dict:
     from multigridsolver_tpu_torch.parallel import RowMesh, shard_ell_halo
     from multigridsolver_tpu_torch.utils.config import BENCH_NDEV as NDEV
     rs = np.random.RandomState(0)
-    res = {name: {"max_abs_err": 0.0} for name in REPLACES}
+    res = {}
 
-    def record(name, shape_tag, err, fn, plain, library, nbytes, flops=0):
-        ms, plain_ms = time_ms(fn), time_ms(plain)
-        library_ms = time_ms(library) if library is not None else None
-        b_ms, b_by = bound_ms(nbytes, flops)
-        r = res[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if "ms" not in r:
-            r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                     bound_ms=b_ms, bound_by=b_by)
-        log(f"kernel {name} {shape_tag}: max_abs_err={err!r} ms={ms!r} "
-            f"plain_ms={plain_ms!r} library_ms={library_ms!r} "
-            f"bound_ms={b_ms!r} ({b_by}, {nbytes} bytes)")
-
-    # K1: finest-level ELL shape, coarse HYB remainder shape, f64 variant
+    # K1 without lanes: finest-level ELL shape, coarse HYB remainder
+    # shape, f64 variant
     for k, n, dtype, rtol in [(5, 1000000, torch.float32, 1e-6),
                               (9, 294006, torch.float32, 1e-6),
                               (9, 294006, torch.float64, 1e-12)]:
@@ -252,7 +283,8 @@ def phase_kernels(device, problem) -> dict:
         csr = csr_of(cols, vals, valid, x.shape[0])
         w = x.element_size()
         nbytes = cols.numel() * (4 + w) + (touched(cols) + y.numel()) * w
-        record("gather_spmv", f"K={k} npad={cols.shape[1]} {dtype}", err,
+        record(res, "gather_spmv", f"K={k} npad={cols.shape[1]} {dtype}",
+               err,
                lambda: g.gather_spmv(cols, vals, x),
                lambda: g.gather_spmv_plain(cols, vals, x),
                lambda: torch.mv(csr, x), nbytes,
@@ -278,7 +310,7 @@ def phase_kernels(device, problem) -> dict:
               f"{x.dtype} is not bitwise equal to its plain version")
         idx64 = idx.long().clamp(0, x.shape[0] - 1).reshape(-1)
         w = x.element_size()
-        record("take", f"idx={tuple(idx.shape)} x={x.dtype}", 0.0,
+        record(res, "take", f"idx={tuple(idx.shape)} x={x.dtype}", 0.0,
                lambda: g.take(idx, x), lambda: g.take_plain(idx, x),
                lambda: torch.index_select(x, 0, idx64),
                idx.numel() * (4 + w) + touched(idx64) * w)
@@ -299,7 +331,8 @@ def phase_kernels(device, problem) -> dict:
         check(torch.equal(out, ref), f"K3 S=9 {xs.dtype} is not bitwise "
               "equal to its plain version")
         w = xs.element_size()
-        record("take_rows", f"S=9 n={nc_pad} nsrc={nsrc} {xs.dtype}", 0.0,
+        record(res, "take_rows", f"S=9 n={nc_pad} nsrc={nsrc} {xs.dtype}",
+               0.0,
                lambda: g.take_rows(idxm, xs),
                lambda: g.take_rows_plain(idxm, xs),
                lambda: xs.index_select(1, idxm64),
@@ -339,7 +372,7 @@ def phase_kernels(device, problem) -> dict:
         check(torch.equal(library().view(idx.shape), out),
               "K4's library yardstick computes another function")
         w = x.element_size()
-        record("take_sharded", f"idx={tuple(idx.shape)} x={x.dtype} "
+        record(res, "take_sharded", f"idx={tuple(idx.shape)} x={x.dtype} "
                f"npr={npr} h={h}", 0.0,
                lambda: g.take_sharded(idx, x, halo, npr, h),
                lambda: g.take_sharded_plain(idx, x, halo, npr, h), library,
@@ -374,14 +407,14 @@ def phase_main_path(device, a) -> dict:
         true_res, floor = check_solution(
             f"main path {tag}", a_sp, b, setup, res, times, dtype,
             expect_levels)
-        return dict(true_res=true_res, floor=floor, setup=setup,
+        return dict(true_res=true_res, floor=floor, setup=setup, hier=hier,
                     iterations=res.iterations, times=times, b=b, a_sp=a_sp)
 
     g.reset_launch_counts()
     first = run(torch.float32, EXPECT_LEVELS)
     counts = g.launch_counts()
     log(f"main path launches: {json.dumps(counts)}")
-    for name in ("gather_spmv", "take", "take_rows"):
+    for name in ("gather_spmv", "hyb_spmv", "take", "take_rows"):
         check(counts[name] > 0,
               f"kernel {name} was not launched by the main path")
     mism = [mu_mismatches(m, cfg.aggregation)
@@ -404,10 +437,143 @@ def phase_main_path(device, a) -> dict:
     f64 = run(torch.float64, None)
     check(f64["true_res"] < 1e-5,
           f"float64 true residual {f64['true_res']} >= 1e-5")
-    first["labels"] = [l.cpu() for l in first.pop("setup").level_labels]
+    first["labels"] = [l.cpu() for l in first["setup"].level_labels]
     first["warm_times"] = second["times"]
     first["launches"] = counts
+    first["f64"] = f64
     return first
+
+
+def old_route(dvals, lanes, cols, vals, x):
+    """The hybrid SpMV as the card ran it before K1 took the lanes: the
+    torch lane loop (a multiply and an add per lane), then K1 without
+    lanes for the remainder and one add."""
+    from multigridsolver_tpu_torch.ops import gather as g
+    y = g.hyb_spmv_plain(dvals, lanes, None, None, x)
+    return y if cols is None else y.add_(g.gather_spmv(cols, vals, x))
+
+
+def hyb_args(h):
+    e = h.ell
+    return (h.dvals, h.lanes, None if e is None else e.cols,
+            None if e is None else e.vals)
+
+
+def hyb_bytes(dvals, lanes, cols, vals, x) -> tuple[int, int]:
+    """What K1 with lanes must move (each input once: the lanes, the
+    remainder, the x words it touches; y once) and its float operations
+    (a multiply and an add per nonzero lane entry and remainder slot)."""
+    import torch
+    n, w = dvals.shape[1], x.element_size()
+    seen = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for o in lanes.offsets:
+        lo, hi = max(0, -o), min(n, n - o)
+        seen[lo + o:hi + o] = True
+    entries = int((dvals != 0).sum())
+    k = 0
+    if cols is not None:
+        k = cols.shape[0]
+        seen[cols.reshape(-1).long()] = True
+        entries += int((vals != 0).sum())
+    nbytes = (dvals.numel() * w + k * n * (4 + w) + int(seen.sum()) * w
+              + n * w)
+    return nbytes, 2 * entries
+
+
+def phase_hyb(device, main, res) -> None:
+    """K1 with lanes on every level of the main path's f32 and f64
+    hierarchies, on level 1 with its offsets spread past the x window's
+    budget, and timed at the shapes of levels 0 and 1 (f32)."""
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    rs = np.random.RandomState(1)
+    routes = set()
+    for tag, run in (("float32", main), ("float64", main["f64"])):
+        atol = 1e-6 if tag == "float32" else 1e-12
+        for lvl, level in enumerate(run["hier"].levels):
+            args = hyb_args(level.a)
+            dv, lanes, cols, _ = args
+            x = torch.from_numpy(rs.rand(dv.shape[1])).to(device, dv.dtype)
+            route = g.hyb_route(*args, x)
+            routes.add(route)
+            y = g.hyb_spmv(*args, x)
+            old = old_route(*args, x)
+            ref = g.hyb_spmv_plain(*args, x)
+            torch.cuda.synchronize()
+            check(torch.equal(y, old), f"hyb_spmv {tag} level {lvl} is not "
+                  "bitwise equal to the old route")
+            check(torch.allclose(y, ref, rtol=atol, atol=atol),
+                  f"hyb_spmv {tag} level {lvl} disagrees with its plain "
+                  "version")
+            err = float((y.double() - ref.double()).abs().max())
+            r = res.setdefault("hyb_spmv", {"max_abs_err": 0.0})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            fill = float((dv != 0).sum()) / max(dv.numel(), 1)
+            log(f"hyb_spmv {tag} level {lvl}: npad={dv.shape[1]} "
+                f"D={lanes.d} offset_span={lanes.omax - lanes.omin} "
+                f"lane_fill={fill:.4f} "
+                f"K={0 if cols is None else cols.shape[0]} route={route} "
+                f"bitwise_old_route=True max_abs_err={err!r}")
+    # level 1 with its offsets spread 20-fold: the window no longer fits,
+    # the lanes read x through __ldg
+    for tag, run in (("float32", main), ("float64", main["f64"])):
+        h = run["hier"].levels[1].a
+        dv, lanes, cols, vals = hyb_args(h)
+        wide = g.pack_lanes([20 * o for o in lanes.offsets])
+        x = torch.from_numpy(rs.rand(dv.shape[1])).to(device, dv.dtype)
+        route = g.hyb_route(dv, wide, cols, vals, x)
+        routes.add(route)
+        y = g.hyb_spmv(dv, wide, cols, vals, x)
+        atol = 1e-6 if tag == "float32" else 1e-12
+        check(torch.equal(y, old_route(dv, wide, cols, vals, x)),
+              f"hyb_spmv {tag} wide offsets: not bitwise the old route")
+        check(torch.allclose(y, g.hyb_spmv_plain(dv, wide, cols, vals, x),
+                             rtol=atol, atol=atol),
+              f"hyb_spmv {tag} wide offsets disagree with the plain version")
+        log(f"hyb_spmv {tag} level 1, offsets x20: D={wide.d} "
+            f"offset_span={wide.omax - wide.omin} route={route} "
+            "bitwise_old_route=True")
+    check(routes >= {"window", "vector"}, f"hyb_spmv took routes {routes}, "
+          "not both the x window and the __ldg lanes")
+
+    def without_window(fn):
+        def run():
+            keep = g.WINDOW_BYTES
+            g.WINDOW_BYTES = 0
+            try:
+                return fn()
+            finally:
+                g.WINDOW_BYTES = keep
+        return run
+
+    # timed at level 1 (the first shape: the JSON line's) and level 0
+    for lvl in (1, 0):
+        h = main["hier"].levels[lvl].a
+        args = hyb_args(h)
+        ell = main["setup"].matrices[lvl]
+        x = torch.from_numpy(rs.rand(h.npad)).to(device, torch.float32)
+        csr = csr_of(ell.cols, ell.vals, ell.slot_mask(), x.shape[0])
+        log(f"hyb_spmv level {lvl}: the same operator in CSR holds "
+            f"{csr.values().numel()} entries, {ell.nrows} rows")
+        check(torch.allclose(torch.mv(csr, x), g.hyb_spmv(*args, x),
+                             rtol=1e-4, atol=1e-4),
+              f"level {lvl}: the cuSPARSE yardstick computes another "
+              "function")
+        ldg = without_window(lambda: g.hyb_spmv(*args, x))
+        check(torch.equal(ldg(), g.hyb_spmv(*args, x)),
+              f"level {lvl}: the __ldg lanes differ from the x window")
+        nbytes, flops = hyb_bytes(*args, x)
+        dv, lanes, cols, _ = args
+        record(res, "hyb_spmv",
+               f"level {lvl} f32 D={lanes.d} K="
+               f"{0 if cols is None else cols.shape[0]} npad={h.npad} "
+               f"route={g.hyb_route(*args, x)}", 0.0,
+               lambda: g.hyb_spmv(*args, x),
+               lambda: g.hyb_spmv_plain(*args, x),
+               lambda: torch.mv(csr, x), nbytes, flops,
+               extra={"old_route_ms": lambda: old_route(*args, x),
+                      "ldg_ms": ldg})
 
 
 def check_solution(tag, a_sp, b, setup, res, times, dtype, expect_levels):
@@ -536,6 +702,7 @@ def main() -> int:
         problem = poisson2d(BENCH_GRID)
         kres = phase_kernels(device, problem)
         unsharded = phase_main_path(device, problem)
+        phase_hyb(device, unsharded, kres)
         by_path = {"unsharded": unsharded["launches"],
                    "sharded": phase_sharded(device, problem, unsharded)}
     except SmokeFailure as e:
@@ -549,7 +716,8 @@ def main() -> int:
                     launches_by_path={p: c[name] for p, c in by_path.items()},
                     **{k: kres[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")})
+                        "bound_by", "library_ms", "old_route_ms", "ldg_ms")
+                       if k in kres[name]})
                for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,15 @@
 // Gather kernels of the AGMG main path, for Hopper (sm_90a).
 //
-// They replace the three windowed-gather Pallas kernels of
+// They replace the windowed-gather Pallas kernels of
 // multigridsolver_tpu/ops/gather_pallas.py:
 //
-//   K1  gather_spmv  y[i] = sum_k vals[k, i] * x[cols[k, i]]
-//       replaces windowed_gather_spmv (_spmv_kernel + _window_gather)
+//   K1  hyb_spmv     y[i] = DIA[i] + REM[i], one launch per SpMV of a
+//                    DIA + ELL hybrid operator (D = 0: the plain ELL SpMV
+//                    y[i] = sum_k vals[k, i] * x[cols[k, i]] of
+//                    gather_spmv, prolongation and restriction)
+//       replaces windowed_gather_spmv (_spmv_kernel + _window_gather,
+//       gather_pallas.py:255) together with the XLA-fused DIA pass
+//       around it (multigridsolver_tpu/sparse/hybrid.py:223-242)
 //   K2  take         out[j] = x[clamp(idx[j])]   over a flat index array
 //       replaces windowed_take (_take_kernel)
 //   K3  take_rows    out[s, i] = xs[s, clamp(idx[i])]
@@ -17,19 +22,58 @@
 // TPU has no vector gather from HBM.  A GPU thread loads from any global
 // address, so these kernels gather directly and carry no window plan.
 //
-// What bounds them: all three are pure data movement.  K1 reads
-// K * npad * 8 bytes of (cols, vals) plus the gathered x and writes 4 or 8
-// bytes per row; K2/K3 read 4 bytes of index and one word of source per
-// output word and write that word.  The design keeps every index and
-// output access coalesced (slot-major ELL: consecutive threads take
-// consecutive rows) and sends the data-dependent source loads through the
-// read-only path (__ldg); the gathered x of a banded matrix stays in L2.
+// What bounds them: all of them are pure data movement.  K2/K3 read 4
+// bytes of index and one word of source per output word and write that
+// word.  Their design keeps every index and output access coalesced
+// (slot-major layout: consecutive threads take consecutive rows) and
+// sends the data-dependent source loads through the read-only path
+// (__ldg); the gathered x of a banded matrix stays in L2.  Indices are
+// clamped to [0, nsrc - 1] so a -1 sentinel never reads out of bounds;
+// callers mask such entries, as on the TPU.
 //
-// Arithmetic: K1 walks the slots in ascending order with a product
-// rounded before each add (__fmul_rn / __fadd_rn, never contracted to an
-// FMA), the order and rounding of the plain (vals * x[cols]).sum(0).
-// Indices are clamped to [0, nsrc - 1] so a -1 sentinel never reads out
-// of bounds; callers mask such entries, as on the TPU.
+// K1 (hyb_spmv).  The operator is D DIA lanes (dvals (D, npad), offsets
+// o_d) and an ELL remainder (cols, vals (K, npad)):
+//
+//   DIA[i] = fold over d in offsets order, skipping lanes with i + o_d
+//            outside [0, npad):  acc = acc + dvals[d, i] * x[i + o_d]
+//   REM[i] = fold over k = 0..K-1:  acc = acc + vals[k, i] * x[clamp(cols)]
+//   y[i]   = DIA[i] + REM[i]
+//
+// Both folds start at +0; every product and sum is one IEEE rounding
+// (__fmul_rn / __fadd_rn, never contracted to an FMA).  That is the order
+// and rounding of the route it replaces on the card (one multiply and one
+// add kernel per lane, then the ELL SpMV, then one add), so the bits do
+// not change.  An accumulator that starts at +0 is never -0, so y = REM
+// exactly when D = 0.
+//
+// What bounds K1: bytes.  It must read D * npad * w of dvals, K * npad *
+// (4 + w) of (cols, vals), the x words it touches, and write npad * w
+// (w = 4 or 8).  It does about 2 (D + K) flops per row, 2 flops per 8-12
+// bytes: far below the card's balance point, so tensor cores do not
+// apply.  On the card the route it replaces paid two kernels per lane
+// (99 launches per coarse-level SpMV with 48 lanes) and re-read y for
+// each; K1 is one launch that writes y once.  Its design:
+//
+//   * rows per thread and 16-byte loads: npad is a multiple of 1024 on
+//     the main path, so an f32 thread takes 4 consecutive rows (int4 of
+//     cols, float4 of vals and of each dval lane) and an f64 thread 2
+//     (int2, double2).  All of a row group's slot indices and values are
+//     loaded before its gathers (the slot loop is unrolled at compile time
+//     for K <= 16); each row's fold stays in ascending order.
+//   * the x window: a block of B rows starting at i0 reads its DIA lanes
+//     only from x[i0 + omin, i0 + B + omax).  The block stages that window
+//     in shared memory with cp.async (16-byte chunks; the start aligned
+//     down to 16 bytes, zero past [0, npad)) while its threads gather the
+//     remainder, so each x word comes from device memory once per block
+//     and the D lanes read it from shared memory.  The remainder's
+//     columns are irregular: its gathers stay __ldg.  Where the window
+//     does not fit the budget the wrapper gives, or x is not 16-byte
+//     aligned, the lanes read x through __ldg instead (a choice by shape).
+//   * a scalar instance (one row per thread, no window) takes what the
+//     16-byte loads cannot: npad not a multiple of the row group, or a
+//     pointer off 16-byte alignment.
+//   * the offsets come by value, in a __grid_constant__ struct of at most
+//     64 lanes: no host-to-device copy per call.
 //
 // K4 on a row mesh: rows are split into ndev shards of npr rows, and shard
 // s may read its own rows plus h rows on either side.  The TPU kernel
@@ -49,6 +93,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+constexpr int kMaxLanes = 64;
+
+// The DIA offsets of one hybrid operator, packed once on the host (the
+// layout of ops/gather.py's HybLanes).  Outside the anonymous namespace:
+// the extern "C" entries take it, and must keep external linkage.
+struct HybLanes {
+  int d;       // number of lanes, 0..kMaxLanes
+  int omin;    // smallest and largest offset (0 when d == 0)
+  int omax;
+  int off[kMaxLanes];
+};
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -62,25 +118,173 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-// K1: one thread per row, slots walked in ascending order.
-template <typename T>
-__global__ void gather_spmv_kernel(const int* __restrict__ cols,
-                                   const T* __restrict__ vals,
-                                   const T* __restrict__ x,
-                                   T* __restrict__ y,
-                                   int K, int npad, int nsrc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= npad) return;
-  T acc = T(0);
-  // unrolled so the index and value loads of several slots are in flight
-  // together; the sum still runs slot by slot in ascending order
+// ------------------------------------------------------------------ K1
+
+// rows per thread on the 16-byte path: one 16-byte load of each slot
+template <typename T> struct RowGroup;
+template <> struct RowGroup<float> { static constexpr int R = 4; };
+template <> struct RowGroup<double> { static constexpr int R = 2; };
+
+__device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load(const double* p, double (&v)[2]) {
+  const double2 t = *reinterpret_cast<const double2*>(p);
+  v[0] = t.x; v[1] = t.y;
+}
+__device__ __forceinline__ void load(const int* p, int (&v)[4]) {
+  const int4 t = *reinterpret_cast<const int4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load(const int* p, int (&v)[2]) {
+  const int2 t = *reinterpret_cast<const int2*>(p);
+  v[0] = t.x; v[1] = t.y;
+}
+template <typename U>
+__device__ __forceinline__ void load(const U* p, U (&v)[1]) { v[0] = *p; }
+
+__device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store(double* p, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+template <typename U>
+__device__ __forceinline__ void store(U* p, const U (&v)[1]) { *p = v[0]; }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(gmem));
+}
+
+// REM of R consecutive rows from i0: KU >= 0 slots known at compile time
+// (every index and value loaded before the gathers), KU < 0 a run-time K.
+template <typename T, int R, int KU>
+__device__ __forceinline__ void remainder_fold(const int* __restrict__ cols,
+                                               const T* __restrict__ vals,
+                                               const T* __restrict__ x,
+                                               int K, int npad, int nsrc,
+                                               int i0, T (&rem)[R]) {
+  if constexpr (KU > 0) {
+    int c[KU][R];
+    T v[KU][R];
+#pragma unroll
+    for (int k = 0; k < KU; ++k) {
+      load(cols + static_cast<int64_t>(k) * npad + i0, c[k]);
+      load(vals + static_cast<int64_t>(k) * npad + i0, v[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < KU; ++k) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const T xv = __ldg(x + clamp_index(c[k][r], nsrc));
+        rem[r] = add_rn(rem[r], mul_rn(v[k][r], xv));
+      }
+    }
+  } else if constexpr (KU < 0) {
 #pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const int64_t o = static_cast<int64_t>(k) * npad + i;
-    const int c = clamp_index(cols[o], nsrc);
-    acc = add_rn(acc, mul_rn(vals[o], __ldg(x + c)));
+    for (int k = 0; k < K; ++k) {
+      int c[R];
+      T v[R];
+      load(cols + static_cast<int64_t>(k) * npad + i0, c);
+      load(vals + static_cast<int64_t>(k) * npad + i0, v);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        rem[r] = add_rn(rem[r],
+                        mul_rn(v[r], __ldg(x + clamp_index(c[r], nsrc))));
+      }
+    }
   }
-  y[i] = acc;
+}
+
+// DIA of R consecutive rows from i0, lane by lane in offsets order; x[j]
+// from the shared window (xw[j - ws]) or through __ldg.
+template <typename T, int R, bool kWindow>
+__device__ __forceinline__ void dia_fold(const T* __restrict__ dvals,
+                                         const int* s_off, int D,
+                                         const T* __restrict__ x,
+                                         const T* xw, int ws, int npad,
+                                         int i0, T (&acc)[R]) {
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    const int o = s_off[d];
+    T dv[R];
+    load(dvals + static_cast<int64_t>(d) * npad + i0, dv);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = i0 + r + o;
+      if (static_cast<unsigned>(j) < static_cast<unsigned>(npad)) {
+        const T xv = kWindow ? xw[j - ws] : __ldg(x + j);
+        acc[r] = add_rn(acc[r], mul_rn(dv[r], xv));
+      }
+    }
+  }
+}
+
+// K1: a block of kThreads * R rows, R rows per thread.  window != 0 only
+// for R > 1, D > 0 and a 16-byte-aligned x (the launcher decides).
+template <typename T, int R, int KU>
+__global__ void __launch_bounds__(kThreads)
+hyb_spmv_kernel(const T* __restrict__ dvals,
+                const __grid_constant__ HybLanes lanes,
+                const int* __restrict__ cols, const T* __restrict__ vals,
+                const T* __restrict__ x, T* __restrict__ y,
+                int K, int npad, int nsrc, int window) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xw = reinterpret_cast<T*>(smem);
+  __shared__ int s_off[kMaxLanes];
+  const int D = lanes.d;
+  const int block_row = blockIdx.x * (kThreads * R);
+  const int i0 = block_row + threadIdx.x * R;
+  if (threadIdx.x < D) s_off[threadIdx.x] = lanes.off[threadIdx.x];
+  int ws = 0;
+  if (window) {
+    // x[ws, block_row + kThreads * R + omax) in 16-byte chunks, ws the
+    // window's start aligned down to a chunk; chunks that leave
+    // [0, npad) are filled word by word, with 0 outside it
+    constexpr int V = 16 / sizeof(T);
+    const int lo = block_row + lanes.omin;
+    ws = (lo >= 0 ? lo / V : -((V - 1 - lo) / V)) * V;
+    const int words = block_row + kThreads * R + lanes.omax - ws;
+    for (int c = threadIdx.x * V; c < words; c += kThreads * V) {
+      const int g = ws + c;
+      if (g >= 0 && g + V <= npad) {
+        cp_async16(xw + c, x + g);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          xw[c + j] = (g + j >= 0 && g + j < npad) ? x[g + j] : T(0);
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  // rows past npad only help fill the window: npad is a multiple of R,
+  // so a row group lies wholly inside or wholly outside
+  const bool active = i0 < npad;
+  T rem[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) rem[r] = T(0);
+  // the remainder does not read the window: it runs while the copy lands
+  if (active) {
+    remainder_fold<T, R, KU>(cols, vals, x, K, npad, nsrc, i0, rem);
+  }
+  if (window) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  if (!active) return;
+  T acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = T(0);
+  if (window) {
+    dia_fold<T, R, true>(dvals, s_off, D, x, xw, ws, npad, i0, acc);
+  } else {
+    dia_fold<T, R, false>(dvals, s_off, D, x, xw, ws, npad, i0, acc);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = add_rn(acc[r], rem[r]);
+  store(y + i0, acc);
 }
 
 // K2: one thread per output word, over the flattened index array.  W is
@@ -152,14 +356,87 @@ int grid_for(int64_t n) {
   return static_cast<int>(blocks < cap ? blocks : cap);
 }
 
+// K1's routes: which instance a call takes
+enum HybRoute { kScalarRoute = 0, kVectorRoute = 1, kWindowRoute = 2 };
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// shared-memory words of the widest x window any block of the 16-byte
+// route needs (0 without lanes)
 template <typename T>
-int launch_spmv(const void* cols, const void* vals, const void* x, void* y,
-                int K, int npad, int nsrc, void* stream) {
-  const int blocks = (npad + kThreads - 1) / kThreads;
-  gather_spmv_kernel<T><<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cols), static_cast<const T*>(vals),
-      static_cast<const T*>(x), static_cast<T*>(y), K, npad, nsrc);
+int64_t hyb_window_words(const HybLanes& lanes) {
+  if (lanes.d == 0) return 0;
+  constexpr int V = 16 / sizeof(T);
+  const int64_t span = static_cast<int64_t>(kThreads) * RowGroup<T>::R
+                       + lanes.omax - lanes.omin + V - 1;
+  return (span + V - 1) / V * V;
+}
+
+template <typename T>
+int hyb_route(const void* dvals, const HybLanes& lanes, const void* cols,
+              const void* vals, const void* x, const void* y, int K,
+              int npad, int window_bytes) {
+  const bool vec = npad % RowGroup<T>::R == 0
+                   && (lanes.d == 0 || aligned16(dvals))
+                   && (K == 0 || (aligned16(cols) && aligned16(vals)))
+                   && aligned16(y);
+  if (!vec) return kScalarRoute;
+  if (lanes.d > 0 && aligned16(x)
+      && hyb_window_words<T>(lanes) * static_cast<int64_t>(sizeof(T))
+             <= window_bytes) {
+    return kWindowRoute;
+  }
+  return kVectorRoute;
+}
+
+template <typename T>
+using HybKernel = void (*)(const T*, const HybLanes, const int*, const T*,
+                           const T*, T*, int, int, int, int);
+
+template <typename T, int R>
+HybKernel<T> hyb_kernel_for(int K) {
+#define MGS_HYB_SLOTS(KK) \
+  case KK:                \
+    return hyb_spmv_kernel<T, R, KK>;
+  switch (K) {
+    MGS_HYB_SLOTS(0) MGS_HYB_SLOTS(1) MGS_HYB_SLOTS(2) MGS_HYB_SLOTS(3)
+    MGS_HYB_SLOTS(4) MGS_HYB_SLOTS(5) MGS_HYB_SLOTS(6) MGS_HYB_SLOTS(7)
+    MGS_HYB_SLOTS(8) MGS_HYB_SLOTS(9) MGS_HYB_SLOTS(10) MGS_HYB_SLOTS(11)
+    MGS_HYB_SLOTS(12) MGS_HYB_SLOTS(13) MGS_HYB_SLOTS(14) MGS_HYB_SLOTS(15)
+    MGS_HYB_SLOTS(16)
+    default:
+      return hyb_spmv_kernel<T, R, -1>;
+  }
+#undef MGS_HYB_SLOTS
+}
+
+template <typename T>
+int launch_hyb(const void* dvals, const HybLanes* lanes, const void* cols,
+               const void* vals, const void* x, void* y, int K, int npad,
+               int nsrc, int window_bytes, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* dv = static_cast<const T*>(dvals);
+  const int* c = static_cast<const int*>(cols);
+  const T* v = static_cast<const T*>(vals);
+  const T* xs = static_cast<const T*>(x);
+  T* ys = static_cast<T*>(y);
+  const int route = hyb_route<T>(dvals, *lanes, cols, vals, x, y, K, npad,
+                                 window_bytes);
+  if (route == kScalarRoute) {
+    const int blocks = (npad + kThreads - 1) / kThreads;
+    hyb_spmv_kernel<T, 1, -1><<<blocks, kThreads, 0, s>>>(
+        dv, *lanes, c, v, xs, ys, K, npad, nsrc, 0);
+  } else {
+    constexpr int R = RowGroup<T>::R;
+    const int blocks = (npad / R + kThreads - 1) / kThreads;
+    const size_t smem = route == kWindowRoute
+        ? static_cast<size_t>(hyb_window_words<T>(*lanes)) * sizeof(T) : 0;
+    const HybKernel<T> kernel = hyb_kernel_for<T, R>(K);
+    kernel<<<blocks, kThreads, smem, s>>>(dv, *lanes, c, v, xs, ys, K, npad,
+                                          nsrc, route == kWindowRoute);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,14 +475,36 @@ int launch_take_sharded(const void* idx, const void* x, const void* halo,
 
 extern "C" {
 
-int mgs_gather_spmv_f32(const void* cols, const void* vals, const void* x,
-                        void* y, int K, int npad, int nsrc, void* stream) {
-  return launch_spmv<float>(cols, vals, x, y, K, npad, nsrc, stream);
+int mgs_hyb_spmv_f32(const void* dvals, const HybLanes* lanes,
+                     const void* cols, const void* vals, const void* x,
+                     void* y, int K, int npad, int nsrc, int window_bytes,
+                     void* stream) {
+  return launch_hyb<float>(dvals, lanes, cols, vals, x, y, K, npad, nsrc,
+                           window_bytes, stream);
 }
 
-int mgs_gather_spmv_f64(const void* cols, const void* vals, const void* x,
-                        void* y, int K, int npad, int nsrc, void* stream) {
-  return launch_spmv<double>(cols, vals, x, y, K, npad, nsrc, stream);
+int mgs_hyb_spmv_f64(const void* dvals, const HybLanes* lanes,
+                     const void* cols, const void* vals, const void* x,
+                     void* y, int K, int npad, int nsrc, int window_bytes,
+                     void* stream) {
+  return launch_hyb<double>(dvals, lanes, cols, vals, x, y, K, npad, nsrc,
+                            window_bytes, stream);
+}
+
+// the route a call with these arguments takes (HybRoute); y as the
+// wrapper allocates it, 16-byte aligned
+int mgs_hyb_route_f32(const void* dvals, const HybLanes* lanes,
+                      const void* cols, const void* vals, const void* x,
+                      int K, int npad, int window_bytes) {
+  return hyb_route<float>(dvals, *lanes, cols, vals, x, nullptr, K, npad,
+                          window_bytes);
+}
+
+int mgs_hyb_route_f64(const void* dvals, const HybLanes* lanes,
+                      const void* cols, const void* vals, const void* x,
+                      int K, int npad, int window_bytes) {
+  return hyb_route<double>(dvals, *lanes, cols, vals, x, nullptr, K, npad,
+                           window_bytes);
 }
 
 int mgs_take_w4(const void* idx, const void* x, void* out, long long n,

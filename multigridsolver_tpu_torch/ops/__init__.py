@@ -1,4 +1,4 @@
 """Hand-written CUDA kernels of the main path (K1, K2, K3) and of its
 row-sharded variant (K4)."""
-from .gather import (gather_spmv, take, take_rows, take_sharded,
-                     launch_counts, reset_launch_counts)
+from .gather import (gather_spmv, hyb_spmv, pack_lanes, take, take_rows,
+                     take_sharded, launch_counts, reset_launch_counts)

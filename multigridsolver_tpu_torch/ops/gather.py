@@ -3,9 +3,14 @@
 Four hand-written CUDA kernels (``csrc/gather.cu``) carry every gather of
 the AGMG main path and its row-sharded variant:
 
-* **K1** :func:`gather_spmv` — ``y[i] = Σ_k vals[k, i] · x[cols[k, i]]``:
-  every solve-phase SpMV remainder and both grid transfers.  Replaces
-  ``windowed_gather_spmv`` (``multigridsolver_tpu/ops/gather_pallas.py``).
+* **K1** :func:`hyb_spmv` — ``y = A @ x`` for a DIA + ELL hybrid operator
+  in one launch: the DIA lanes and the ELL remainder of every
+  solve-phase SpMV.  Its entry with no lanes, :func:`gather_spmv`
+  (``y[i] = Σ_k vals[k, i] · x[cols[k, i]]``), carries both grid
+  transfers, the plain ELL SpMV and the per-shard remainders.  Replaces
+  ``windowed_gather_spmv`` (``multigridsolver_tpu/ops/gather_pallas.py``)
+  and the XLA-fused DIA pass around it
+  (``multigridsolver_tpu/sparse/hybrid.py``).
 * **K2** :func:`take` — ``out[...] = x[idx[...]]``: every neighbour-field
   gather of strength, matching, labelling and Galerkin.  Replaces
   ``windowed_take``.
@@ -43,8 +48,38 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# K1 takes at most this many DIA lanes (the JAX package's max_diags is 48)
+MAX_LANES = 64
+# shared memory K1 may give its x window: 48 KB, less room for its static
+# lane table, is what a block takes without opting in to more
+WINDOW_BYTES = 47 * 1024
+# K1's routes (HybRoute in gather.cu)
+HYB_ROUTES = ("scalar", "vector", "window")
+
 _lib = None
 _lib_lock = threading.Lock()
+
+
+class HybLanes(ctypes.Structure):
+    """The DIA offsets of one hybrid operator as K1 takes them by value:
+    the lane count, the smallest and largest offset, the offsets."""
+
+    _fields_ = [("d", ctypes.c_int), ("omin", ctypes.c_int),
+                ("omax", ctypes.c_int), ("off", ctypes.c_int * MAX_LANES)]
+
+    @property
+    def offsets(self) -> tuple:
+        return tuple(self.off[:self.d])
+
+
+def pack_lanes(offsets) -> HybLanes:
+    """Pack DIA offsets once, for every K1 launch on their operator."""
+    offsets = [int(o) for o in offsets]
+    _require(len(offsets) <= MAX_LANES,
+             f"{len(offsets)} DIA lanes exceed K1's {MAX_LANES}")
+    return HybLanes(len(offsets), min(offsets, default=0),
+                    max(offsets, default=0),
+                    (ctypes.c_int * MAX_LANES)(*offsets))
 
 
 def _nvcc() -> str:
@@ -90,9 +125,14 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             p = ctypes.c_void_p
             i = ctypes.c_int
-            for name in ("mgs_gather_spmv_f32", "mgs_gather_spmv_f64"):
+            lanes = ctypes.POINTER(HybLanes)
+            for name in ("mgs_hyb_spmv_f32", "mgs_hyb_spmv_f64"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p, i, i, i, p]
+                fn.argtypes = [p, lanes, p, p, p, p, i, i, i, i, p]
+                fn.restype = i
+            for name in ("mgs_hyb_route_f32", "mgs_hyb_route_f64"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, lanes, p, p, p, i, i, i]
                 fn.restype = i
             for name in ("mgs_take_w4", "mgs_take_w8"):
                 fn = getattr(lib, name)
@@ -153,18 +193,144 @@ def _stream(t: torch.Tensor) -> int:
 
 # --------------------------------------------------------------------- K1
 
+NO_LANES = pack_lanes(())
+
+
 def gather_spmv_plain(cols: torch.Tensor, vals: torch.Tensor,
                       x: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: ``(vals * x[cols]).sum(0)``."""
+    """Plain version of K1 without lanes: ``Σ_k vals[k] · x[cols[k]]``,
+    the slots folded in ascending order with each product rounded before
+    its add, as the kernel folds them.  (``(vals * x[cols]).sum(0)``
+    reduces in that order on the CPU for K ≤ 16, but not on the card,
+    where it differs in the last bits, beyond 1e-6 on coarse f32
+    levels.)"""
     idx = cols.long().clamp_(0, x.shape[0] - 1)
-    return (vals * x[idx]).sum(0)
+    y = torch.zeros(cols.shape[1:], dtype=x.dtype, device=x.device)
+    for k in range(cols.shape[0]):
+        y.add_(vals[k] * x[idx[k]])
+    return y
+
+
+def hyb_spmv_plain(dvals: torch.Tensor, lanes: HybLanes,
+                   cols: torch.Tensor | None, vals: torch.Tensor | None,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1: the DIA lanes one by one in offsets order (a
+    multiply and an add over the rows whose column ``i + o`` lies in
+    [0, npad)), then the remainder through :func:`gather_spmv_plain` and
+    one add."""
+    n = dvals.shape[1]
+    y = torch.zeros((n,), dtype=x.dtype, device=x.device)
+    for d, o in enumerate(lanes.offsets):
+        lo, hi = max(0, -o), min(n, n - o)
+        y[lo:hi].add_(dvals[d, lo:hi] * x[lo + o:hi + o])
+    if cols is not None:
+        y.add_(gather_spmv_plain(cols, vals, x))
+    return y
+
+
+def _k1(dvals: torch.Tensor | None, lanes: HybLanes,
+        cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, npad: int,
+        name: str) -> torch.Tensor:
+    """Launch K1 on checked CUDA tensors; ``cols``/``vals`` may be None
+    (no remainder), ``dvals`` None when there are no lanes."""
+    K = 0 if cols is None else cols.shape[0]
+    _int_max(max(K, lanes.d, 2) * npad)
+    _int_max(x.shape[0])
+    y = torch.empty((npad,), dtype=x.dtype, device=x.device)
+    if npad == 0:
+        return y
+    lib = load_library()
+    fn = lib.mgs_hyb_spmv_f32 if x.dtype == torch.float32 \
+        else lib.mgs_hyb_spmv_f64
+    with torch.cuda.device(x.device):
+        rc = fn(None if lanes.d == 0 else dvals.data_ptr(), lanes,
+                None if K == 0 else cols.data_ptr(),
+                None if K == 0 else vals.data_ptr(), x.data_ptr(),
+                y.data_ptr(), K, npad, x.shape[0], WINDOW_BYTES, _stream(x))
+    _check(rc, name)
+    return y
+
+
+def _check_hyb(dvals, lanes, cols, vals, x) -> None:
+    """K1's argument checks; each message is formatted only on failure,
+    since this runs once per solve-phase SpMV."""
+    if not (x.dim() == 1 and x.shape[0] > 0):
+        raise ValueError("x must be a non-empty vector")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"x must be float32 or float64, got {x.dtype}")
+    if not (dvals.dim() == 2 and dvals.dtype == x.dtype):
+        raise ValueError(f"dvals must be (D, npad) of x's {x.dtype}, got "
+                         f"{dvals.dtype} {tuple(dvals.shape)}")
+    D, npad = dvals.shape
+    if D > MAX_LANES:
+        raise ValueError(f"{D} DIA lanes exceed K1's {MAX_LANES}")
+    if not (isinstance(lanes, HybLanes) and lanes.d == D):
+        raise ValueError(f"lanes must be the HybLanes of dvals' {D} lanes")
+    if (cols is None) != (vals is None):
+        raise ValueError("cols and vals must both be given or both be None")
+    if cols is not None:
+        if not (cols.dim() == 2 and vals.shape == cols.shape
+                and cols.shape[1] == npad):
+            raise ValueError(f"cols/vals must be equal (K, {npad}), got "
+                             f"{tuple(cols.shape)} and {tuple(vals.shape)}")
+        if cols.dtype != torch.int32:
+            raise ValueError(f"cols must be int32, got {cols.dtype}")
+        if vals.dtype != x.dtype:
+            raise ValueError(f"vals/x must share one dtype, got "
+                             f"{vals.dtype}/{x.dtype}")
+        if not (cols.is_contiguous() and vals.is_contiguous()):
+            raise ValueError("K1 needs contiguous tensors")
+    if D and x.shape[0] < npad:
+        raise ValueError(f"the DIA lanes read x at rows < npad = {npad}, x "
+                         f"has {x.shape[0]}")
+    if not (dvals.is_contiguous() and x.is_contiguous()):
+        raise ValueError("K1 needs contiguous tensors")
+
+
+def hyb_spmv(dvals: torch.Tensor, lanes: HybLanes,
+             cols: torch.Tensor | None, vals: torch.Tensor | None,
+             x: torch.Tensor) -> torch.Tensor:
+    """K1: ``y = A @ x`` for a DIA + ELL hybrid operator, in one launch.
+
+    ``dvals`` ``(D, npad)``: lane ``d`` holds ``A[i, i + o_d]`` (0 where
+    absent or out of range), with the offsets ``o_d`` packed in ``lanes``
+    (:func:`pack_lanes`); ``cols``/``vals`` ``(K, npad)``: the slot-major
+    ELL remainder, or None.  ``y[i]`` is the fold of the lanes in offsets
+    order over the rows whose column lies in [0, npad), plus the fold of
+    the remainder's slots (see ``gather.cu``)."""
+    _check_hyb(dvals, lanes, cols, vals, x)
+    if not _on_cuda(*(t for t in (dvals, cols, vals, x) if t is not None)):
+        return hyb_spmv_plain(dvals, lanes, cols, vals, x)
+    y = _k1(dvals, lanes, cols, vals, x, dvals.shape[1], "hyb_spmv")
+    hyb_spmv.launches += 1
+    return y
+
+
+hyb_spmv.launches = 0
+
+
+def hyb_route(dvals: torch.Tensor, lanes: HybLanes,
+              cols: torch.Tensor | None, vals: torch.Tensor | None,
+              x: torch.Tensor) -> str:
+    """Which instance :func:`hyb_spmv` launches for these CUDA tensors:
+    ``"window"`` (16-byte loads, x window in shared memory), ``"vector"``
+    (16-byte loads, lanes read x through ``__ldg``) or ``"scalar"``."""
+    _check_hyb(dvals, lanes, cols, vals, x)
+    K = 0 if cols is None else cols.shape[0]
+    fn = load_library().mgs_hyb_route_f32 if x.dtype == torch.float32 \
+        else load_library().mgs_hyb_route_f64
+    return HYB_ROUTES[fn(None if lanes.d == 0 else dvals.data_ptr(), lanes,
+                         None if K == 0 else cols.data_ptr(),
+                         None if K == 0 else vals.data_ptr(), x.data_ptr(),
+                         K, dvals.shape[1], WINDOW_BYTES)]
 
 
 def gather_spmv(cols: torch.Tensor, vals: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
-    """K1: ``y[i] = Σ_k vals[k, i] · x[cols[k, i]]`` over a slot-major
-    ``(K, npad)`` ELL (invalid slots hold col 0 / val 0).  ``x`` and
-    ``vals`` share one dtype, float32 or float64; ``y`` is ``(npad,)``."""
+    """K1 without lanes: ``y[i] = Σ_k vals[k, i] · x[cols[k, i]]`` over a
+    slot-major ``(K, npad)`` ELL (invalid slots hold col 0 / val 0).
+    ``x`` and ``vals`` share one dtype, float32 or float64; ``y`` is
+    ``(npad,)``."""
     _require(cols.dim() == 2 and vals.shape == cols.shape,
              f"cols/vals must be equal (K, npad), got {tuple(cols.shape)} "
              f"and {tuple(vals.shape)}")
@@ -179,21 +345,7 @@ def gather_spmv(cols: torch.Tensor, vals: torch.Tensor,
         return gather_spmv_plain(cols, vals, x)
     _require(cols.is_contiguous() and vals.is_contiguous()
              and x.is_contiguous(), "K1 needs contiguous tensors")
-    K, npad = cols.shape
-    _int_max(K * npad)
-    _int_max(x.shape[0])
-    y = torch.empty((npad,), dtype=x.dtype, device=x.device)
-    if npad == 0:
-        return y
-    if K == 0:
-        return y.zero_()
-    lib = load_library()
-    fn = lib.mgs_gather_spmv_f32 if x.dtype == torch.float32 \
-        else lib.mgs_gather_spmv_f64
-    with torch.cuda.device(x.device):
-        rc = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-                K, npad, x.shape[0], _stream(x))
-    _check(rc, "gather_spmv")
+    y = _k1(None, NO_LANES, cols, vals, x, cols.shape[1], "gather_spmv")
     gather_spmv.launches += 1
     return y
 
@@ -345,8 +497,8 @@ def take_sharded(idx: torch.Tensor, x: torch.Tensor, halo: torch.Tensor,
 take_sharded.launches = 0
 
 
-KERNELS = {"gather_spmv": gather_spmv, "take": take, "take_rows": take_rows,
-           "take_sharded": take_sharded}
+KERNELS = {"gather_spmv": gather_spmv, "hyb_spmv": hyb_spmv, "take": take,
+           "take_rows": take_rows, "take_sharded": take_sharded}
 
 
 def reset_launch_counts() -> None:

@@ -4,16 +4,18 @@ The benchmark matrices are stencils (5-point Poisson, 7-point skyscraper),
 whose entries sit on a handful of constant diagonals j − i ∈ {o₁…o_D};
 the Galerkin coarse operators keep most entries near a few diagonals too.
 Entries on those diagonals need no gather: y += dval_d · shift(x, o_d),
-contiguous loads in plain torch.  The stragglers stay in an ELL
-remainder whose SpMV runs on the K1 gather kernel.
+contiguous loads.  The stragglers stay in an ELL remainder.  One launch
+of the K1 kernel (``ops.gather.hyb_spmv``) computes both parts of an
+SpMV.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..ops import gather
 from . import ops as ell_ops
 from .formats import ELL
 
@@ -23,13 +25,17 @@ class HYB:
     """``offsets``: diagonal shifts (tuple of ints, may be empty);
     ``dvals[d, i] = A[i, i + offsets[d]]`` (0 where absent or out of
     range); ``ell``: the remainder entries (None when everything fits on
-    the diagonals)."""
+    the diagonals); ``lanes``: the offsets packed once for K1."""
 
     dvals: torch.Tensor          # (D, npad) — D may be 0
     ell: ELL | None
     offsets: tuple
     nrows: int
     ncols: int
+    lanes: gather.HybLanes = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        self.lanes = gather.pack_lanes(self.offsets)
 
     @property
     def npad(self) -> int:
@@ -105,19 +111,14 @@ def hybrid_from_ell(a: ELL, max_diags: int = 48,
 
 
 def spmv(a: HYB, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for an ``(npad,)`` vector ``x``.  Diagonal ``o`` adds
-    dval · x[i + o] over the rows whose column i + o lies in [0, npad):
-    the elementwise arithmetic of the reference's y + dval · roll(x, −o),
-    whose wrapped positions carry dval = 0 (the splitter stores in-range
-    entries only), without materialising the rolled copy."""
-    n = a.npad
-    y = torch.zeros((n,), dtype=x.dtype, device=x.device)
-    for d, o in enumerate(a.offsets):
-        lo, hi = max(0, -o), min(n, n - o)
-        y[lo:hi].add_(a.dvals[d, lo:hi] * x[lo + o:hi + o])
-    if a.ell is not None:
-        y.add_(ell_ops.spmv(a.ell, x)[:n])
-    return y
+    """y = A @ x for an ``(npad,)`` vector ``x``, one K1 launch.  Diagonal
+    ``o`` adds dval · x[i + o] over the rows whose column i + o lies in
+    [0, npad): the elementwise arithmetic of the reference's
+    y + dval · roll(x, −o), whose wrapped positions carry dval = 0 (the
+    splitter stores in-range entries only), without the rolled copy."""
+    e = a.ell
+    return gather.hyb_spmv(a.dvals, a.lanes, None if e is None else e.cols,
+                           None if e is None else e.vals, x.contiguous())
 
 
 def extract_diag(a: HYB) -> torch.Tensor:

@@ -3,7 +3,7 @@
 Reductions over a row's slots are reductions over axis 0.  Every gather
 goes through the kernels of :mod:`..ops.gather`: neighbour fields through
 K2 (K4 on a row-sharded ELL), member-row fetches through K3, SpMV through
-K1.
+K1 (``gather_spmv`` for an ELL, ``hyb_spmv`` for a DIA+ELL hybrid).
 """
 from __future__ import annotations
 
@@ -52,7 +52,8 @@ def take_member_rows(members: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
 
 
 def spmv(a, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for an ELL (K1), a DIA+ELL hybrid, or a row-sharded
+    """y = A @ x for an ELL (K1), a DIA+ELL hybrid (K1's ``hyb_spmv``,
+    lanes and remainder in one launch), or a row-sharded
     operator bound to its mesh (``parallel.HaloOp``/``ExchangeELL``: halo
     and index-list exchanges, K1 per shard).  ``x``: the padded column
     vector; invalid slots hold val 0, so no masking is needed.  A sharded

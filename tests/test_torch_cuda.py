@@ -19,6 +19,7 @@ from multigridsolver_tpu_torch.parallel import (RowMesh,
 from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
 from multigridsolver_tpu_torch.solve.api import solve_hierarchy
 from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
+from multigridsolver_tpu_torch.sparse.hybrid import hybrid_from_ell
 from multigridsolver_tpu_torch.utils.config import (BENCH_HIERARCHY,
                                                     bench_config)
 
@@ -61,8 +62,53 @@ def test_kernels_match_plain_versions(device, dtype):
     assert torch.equal(g.take(idx, x), g.take_plain(idx, x))
     assert torch.equal(g.take_rows(idx, tv), g.take_rows_plain(idx, tv))
     torch.cuda.synchronize()
-    assert g.launch_counts() == {"gather_spmv": 1, "take": 2,
+    assert g.launch_counts() == {"gather_spmv": 1, "hyb_spmv": 0, "take": 2,
                                  "take_rows": 1, "take_sharded": 0}
+
+
+def old_route(dvals, lanes, cols, vals, x):
+    """The hybrid SpMV as the card ran it before K1 took the lanes: the
+    torch lane loop, then K1 without lanes for the remainder."""
+    y = g.hyb_spmv_plain(dvals, lanes, None, None, x)
+    return y if cols is None else y.add_(g.gather_spmv(cols, vals, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hyb_spmv_matches_plain_and_old_route(device, dtype):
+    """K1 with lanes on every level of poisson2d(96) (x window in shared
+    memory), on wide offsets (lanes through __ldg) and on an odd npad
+    (one row per thread): bitwise the old route, and its plain version
+    to rtol 1e-6 (f32) / 1e-12 (f64)."""
+    rs = np.random.RandomState(19)
+    s = build_amg_setup(poisson2d(96).to_ell(dtype=dtype, device=device),
+                        bench_config())
+    ops = [hybrid_from_ell(m) for m in s.matrices]
+    cases = [(h.dvals, h.lanes, None if h.ell is None else h.ell.cols,
+              None if h.ell is None else h.ell.vals) for h in ops]
+    for npad, offs in [(65536, (-20000, -1, 0, 1, 20000)),
+                       (4099, (-70, -1, 0, 1, 70))]:
+        cols, vals = banded(rs, npad, 3, 200)
+        cases.append((torch.from_numpy(rs.rand(len(offs), npad)).to(device,
+                                                                     dtype),
+                      g.pack_lanes(offs),
+                      torch.from_numpy(cols[:, :npad].copy()).to(device),
+                      torch.from_numpy(vals[:, :npad].copy()).to(device,
+                                                                 dtype)))
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    routes = []
+    for dv, lanes, cols, vals in cases:
+        x = torch.from_numpy(rs.rand(dv.shape[1])).to(device, dtype)
+        routes.append(g.hyb_route(dv, lanes, cols, vals, x))
+        g.reset_launch_counts()
+        y = g.hyb_spmv(dv, lanes, cols, vals, x)
+        assert g.launch_counts()["hyb_spmv"] == 1
+        assert torch.equal(y, old_route(dv, lanes, cols, vals, x))
+        torch.testing.assert_close(
+            y, g.hyb_spmv_plain(dv, lanes, cols, vals, x), rtol=tol,
+            atol=tol)
+    assert routes[-2:] == ["vector", "scalar"]
+    assert {r for r, case in zip(routes[:-2], cases) if case[1].d} \
+        == {"window"}
 
 
 def test_kernels_reject_what_they_do_not_take(device):

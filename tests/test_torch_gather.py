@@ -170,5 +170,11 @@ class TestRouting:
         assert torch.equal(g.take(tc, x), g.take_plain(tc, x))
         assert torch.equal(g.take_rows(tc[0], tv), g.take_rows_plain(tc[0],
                                                                      tv))
-        assert g.launch_counts() == {"gather_spmv": 0, "take": 0,
-                                     "take_rows": 0, "take_sharded": 0}
+        lanes = g.pack_lanes((-1, 0, 1))
+        dv = tv[:3].contiguous()
+        xp = torch.from_numpy(np.random.RandomState(13).rand(tc.shape[1]))
+        assert torch.equal(g.hyb_spmv(dv, lanes, tc, tv, xp),
+                           g.hyb_spmv_plain(dv, lanes, tc, tv, xp))
+        assert g.launch_counts() == {"gather_spmv": 0, "hyb_spmv": 0,
+                                     "take": 0, "take_rows": 0,
+                                     "take_sharded": 0}

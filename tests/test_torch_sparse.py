@@ -1,5 +1,8 @@
 """The port's data layer against the JAX package: generators, ELL packing,
-sparse ops and the DIA+ELL hybrid split (plan-free path, on the CPU)."""
+sparse ops, the DIA+ELL hybrid split and its SpMV (K1's plain version;
+plan-free path, on the CPU)."""
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -13,6 +16,7 @@ from multigridsolver_tpu.utils.config import (AggregationConfig,
                                               HierarchyConfig)
 from multigridsolver_tpu_torch.cli import generators as tgen
 from multigridsolver_tpu_torch.interop import ell_from_numpy
+from multigridsolver_tpu_torch.ops import gather as g
 from multigridsolver_tpu_torch.sparse import hybrid as thyb
 from multigridsolver_tpu_torch.sparse import ops as tops
 
@@ -181,3 +185,116 @@ def test_hybrid_with_remainder_exists(coarse_levels):
     """The coarse levels exercise the K1 remainder path."""
     assert any(thyb.hybrid_from_ell(to_port(m)).ell is not None
                for m in coarse_levels[1:])
+
+
+def old_lane_loop(h, x):
+    """The hybrid SpMV as the port computed it before K1 took the lanes:
+    a multiply and an add per DIA lane, then the remainder's SpMV and one
+    add."""
+    n = h.npad
+    y = torch.zeros((n,), dtype=x.dtype)
+    for d, o in enumerate(h.offsets):
+        lo, hi = max(0, -o), min(n, n - o)
+        y[lo:hi].add_(h.dvals[d, lo:hi] * x[lo + o:hi + o])
+    if h.ell is not None:
+        y.add_(tops.spmv(h.ell, x)[:n])
+    return y
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_hyb_spmv_plain_matches_old_loop_and_jax(coarse_levels, level, dt):
+    """K1's plain version on the JAX setup's levels: bitwise the old lane
+    loop, and JAX's plan-free hybrid SpMV to rtol 1e-6 (f32) / 1e-12
+    (f64)."""
+    jdt, tdt = DTYPES[dt]
+    je = coarse_levels[level].astype(jdt)
+    th = thyb.hybrid_from_ell(to_port(je))
+    assert th.lanes.offsets == th.offsets
+    x = np.random.RandomState(level).rand(je.npad)
+    tx = torch.from_numpy(x).to(tdt)
+    e = th.ell
+    y = g.hyb_spmv(th.dvals, th.lanes, None if e is None else e.cols,
+                   None if e is None else e.vals, tx)
+    assert torch.equal(y, old_lane_loop(th, tx))
+    assert torch.equal(thyb.spmv(th, tx), y)
+    # the split only moves values, so JAX's f64 split cast to f32 is its
+    # f32 split (and reuses the f64 split's compiled programs)
+    jh = jhyb.hybrid_from_ell_device(coarse_levels[level])
+    jh = dataclasses.replace(
+        jh, dvals=jh.dvals.astype(jdt),
+        ell=None if jh.ell is None else jh.ell.astype(jdt))
+    y_j = np.asarray(jhyb.spmv(jh, jnp.asarray(x, jdt)))
+    tol = 1e-6 if dt == "f32" else 1e-12
+    np.testing.assert_allclose(y.numpy(), y_j, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", ["no_lanes", "no_remainder", "far_offsets",
+                                  "padding_rows"])
+def test_hyb_spmv_edge_cases(case):
+    rs = np.random.RandomState(7)
+    if case == "no_lanes":
+        # D = 0 is the plain ELL SpMV of gather_spmv
+        te = tgen.csky3d(10).to_ell(dtype=torch.float64, device="cpu")
+        x = torch.from_numpy(rs.rand(te.npad))
+        y = g.hyb_spmv(torch.zeros((0, te.npad), dtype=torch.float64),
+                       g.NO_LANES, te.cols, te.vals, x)
+        assert torch.equal(y, g.gather_spmv_plain(te.cols, te.vals, x))
+        return
+    if case == "far_offsets":
+        # |o| = npad - 1: lane o reads one row only; the others are
+        # skipped whatever dvals holds there
+        npad = 1024
+        offs = (-(npad - 1), -3, 0, npad - 1)
+        dv = rs.rand(len(offs), npad)
+        x = rs.rand(npad)
+        dense = np.zeros((npad, npad))
+        for d, o in enumerate(offs):
+            i = np.arange(max(0, -o), min(npad, npad - o))
+            dense[i, i + o] = dv[d, i]
+        y = g.hyb_spmv(torch.from_numpy(dv), g.pack_lanes(offs), None, None,
+                       torch.from_numpy(x))
+        np.testing.assert_allclose(y.numpy(), dense @ x, rtol=1e-12,
+                                   atol=1e-12)
+        return
+    # poisson2d(40): five lanes, no remainder, rows 1600..2047 padding
+    a = tgen.poisson2d(40)
+    th = thyb.hybrid_from_ell(a.to_ell(dtype=torch.float64, device="cpu"))
+    assert th.ell is None and len(th.offsets) == 5
+    x = rs.rand(th.npad)
+    y = thyb.spmv(th, torch.from_numpy(x)).numpy()
+    if case == "no_remainder":
+        jh = jhyb.hybrid_from_ell_device(
+            jgen.poisson2d(40).to_ell(dtype=jnp.float64))
+        np.testing.assert_allclose(y, np.asarray(jhyb.spmv(
+            jh, jnp.asarray(x))), rtol=1e-12, atol=1e-12)
+    else:
+        np.testing.assert_array_equal(y[a.nrows:], 0.0)
+        np.testing.assert_allclose(y[:a.nrows], a.to_scipy() @ x[:a.nrows],
+                                   rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("fault", ["too_many_lanes", "mixed_dtypes",
+                                   "noncontiguous_dvals"])
+def test_hyb_spmv_rejects(fault):
+    npad = 1024
+    x = torch.zeros(npad, dtype=torch.float64)
+    lanes = g.pack_lanes((-1, 0, 1))
+    dv = torch.zeros((3, npad), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        if fault == "too_many_lanes":
+            g.pack_lanes(range(g.MAX_LANES + 1))
+        elif fault == "mixed_dtypes":
+            g.hyb_spmv(dv.float(), lanes, None, None, x)
+        else:
+            g.hyb_spmv(torch.zeros((npad, 3), dtype=torch.float64).T, lanes,
+                       None, None, x)
+    if fault == "too_many_lanes":
+        with pytest.raises(ValueError):
+            g.hyb_spmv(torch.zeros((g.MAX_LANES + 1, npad),
+                                   dtype=torch.float64),
+                       g.pack_lanes(range(g.MAX_LANES)), None, None, x)
+    elif fault == "mixed_dtypes":
+        cols = torch.zeros((2, npad), dtype=torch.int32)
+        with pytest.raises(ValueError):
+            g.hyb_spmv(dv, lanes, cols, torch.zeros((2, npad)), x)
