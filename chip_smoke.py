@@ -8,16 +8,24 @@ Phases, each printing a line:
 1. device: requires CUDA and prints ``nvidia-smi``'s name and power limit;
 2. build: compiles the gather kernels (``multigridsolver_tpu_torch/csrc``)
    with nvcc for sm_90a;
-3. kernels: K1 without lanes (``gather_spmv``), K2 (take), K3 (take
-   rows) and K4 (sharded take) against their plain PyTorch versions on
-   the card at the main path's shapes (K4 at the finest sharded level of
-   poisson1000 on four shards), with their device times (CUDA events,
-   median of 20 calls, L2 evicted before each), the time of one PyTorch
-   library call computing the same function, and the least time the
-   card's memory rate allows;
+3. kernels: the floor of a launch (an empty kernel), then K1 without
+   lanes (``gather_spmv``), K2 (take: 1-, 4- and 8-byte words, a bool
+   field beside the int32 round trip it replaced), K3 (take rows: one
+   source, and up to four in one launch beside the one-source launches
+   they replaced) and K4 (sharded take) against their plain PyTorch
+   versions on the card at the main path's shapes (K4 at the finest
+   sharded level of poisson1000 on four shards), every route of K2 and
+   K3 (vector, scalar tail, an index view at a 4-byte offset), with their
+   device times (CUDA events, median of 20 calls, L2 evicted before
+   each), the time of one PyTorch library call computing the same
+   function, and the least time the card's memory rate allows; then K2
+   and K3 again at the index arrays the main path itself passes them in
+   poisson1000's first pass (``a.cols``, the proposals, the pairs, the
+   aggregate leaders);
 4. main path: poisson1000 (n = 10⁶) through ``to_ell`` →
    ``build_amg_setup`` → ``build_hierarchy`` → ``solve_hierarchy``
-   (BiCGStab to 1e-6): in f32 with the kernels' launch counts and a
+   (BiCGStab to 1e-6): in f32 with the kernels' launch counts (also by
+   shape bucket) and a
    bitwise μ(i→j) == μ(j→i) check on every aggregated level, again in
    f32 for times without first-use costs, and in f64, each checked for
    status, relative residuals and iteration count, the f32 runs also for
@@ -39,7 +47,9 @@ Phases, each printing a line:
    times beside the unsharded ones.
 
 The last two lines are a JSON object with the per-kernel results (for
-``hyb_spmv`` also the old route's and the ``__ldg`` lanes' times) and
+``hyb_spmv`` also the old route's and the ``__ldg`` lanes' times, for
+``take_rows_many`` the time of one ``take_rows`` launch per source) and
+the launch floor, and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
 sum of its launches in the first unsharded f32 run and in the sharded
 run, each counted from 0; ``launches_by_path`` gives the two apart.  Any failure exits non-zero before the
@@ -79,6 +89,7 @@ REPLACES = {
     "hyb_spmv": "multigridsolver_tpu/ops/gather_pallas.py:255",
     "take": "multigridsolver_tpu/ops/gather_pallas.py:300",
     "take_rows": "multigridsolver_tpu/ops/gather_pallas.py:359",
+    "take_rows_many": "multigridsolver_tpu/ops/gather_pallas.py:359",
     "take_sharded": "multigridsolver_tpu/ops/gather_pallas.py:368",
 }
 
@@ -252,10 +263,11 @@ def phase_build():
         f"{time.perf_counter() - t0:.3f} s")
 
 
-def phase_kernels(device, problem) -> dict:
+def phase_kernels(device, problem) -> tuple[dict, float]:
     """Each kernel against its plain version at main-path shapes, timed
     beside its plain version, its library yardstick and its bound (the
-    first shape of each kernel is the one reported in the JSON line)."""
+    first shape of each kernel is the one reported in the JSON line).
+    Returns those results and the launch floor (ms)."""
     import numpy as np
     import torch
     from multigridsolver_tpu_torch.ops import gather as g
@@ -263,6 +275,9 @@ def phase_kernels(device, problem) -> dict:
     from multigridsolver_tpu_torch.utils.config import BENCH_NDEV as NDEV
     rs = np.random.RandomState(0)
     res = {}
+    # the floor under every time below: an empty kernel, timed the same way
+    floor_ms = time_ms(lambda: g.empty_launch(device))
+    log(f"launch floor: an empty kernel reads {floor_ms!r} ms by time_ms")
 
     # K1 without lanes: finest-level ELL shape, coarse HYB remainder
     # shape, f64 variant
@@ -301,19 +316,23 @@ def phase_kernels(device, problem) -> dict:
                                      dtype=np.int64).astype(np.int32)
                           ).to(device)
     xd = xf.double()
+    xb = torch.from_numpy(rs.rand(npad) < 0.5).to(device)
     for idx, x in [(cols, xf), (cols, xi), (idx1, xf), (idx1, xi),
-                   (idx1, xd)]:
-        out = g.take(idx, x)
-        ref = g.take_plain(idx, x)
-        torch.cuda.synchronize()
-        check(torch.equal(out, ref), f"K2 idx {tuple(idx.shape)} x "
-              f"{x.dtype} is not bitwise equal to its plain version")
-        idx64 = idx.long().clamp(0, x.shape[0] - 1).reshape(-1)
-        w = x.element_size()
-        record(res, "take", f"idx={tuple(idx.shape)} x={x.dtype}", 0.0,
-               lambda: g.take(idx, x), lambda: g.take_plain(idx, x),
-               lambda: torch.index_select(x, 0, idx64),
-               idx.numel() * (4 + w) + touched(idx64) * w)
+                   (idx1, xd), (cols, xb)]:
+        record_take(res, idx, x, "")
+    # every route bitwise at these shapes: an n % 4 tail, and index views
+    # at a 4-byte offset (scalar route), for each word size
+    for x in (xf, xd, xb):
+        for idx, route in ((idx1[:npad - 1], "vector"),
+                           (idx1[1:], "scalar")):
+            check(g.take_route(idx, x) == route,
+                  f"K2 n={idx.numel()} took route {g.take_route(idx, x)}")
+            check_bits(g.take(idx, x), g.take_plain(idx, x),
+                       f"K2 {route} n={idx.numel()} x {x.dtype}")
+    log(f"kernel take routes: vector with a tail of {(npad - 1) % 4} and "
+        f"scalar (idx at a 4-byte offset) bitwise for float32, float64, "
+        "bool")
+    record_take(res, idx1[1:], xf, " (idx at a 4-byte offset)")
 
     # K3: S = 9 relabelled slot rows fetched at coarse member indices
     nsrc, nc_pad = 294912, 86016
@@ -323,20 +342,28 @@ def phase_kernels(device, problem) -> dict:
     xs_f = torch.from_numpy(rs.rand(9, nsrc).astype(np.float32)).to(device)
     xs_i = torch.from_numpy(rs.randint(-1, 86479, (9, nsrc))
                             .astype(np.int32)).to(device)
-    idxm64 = idxm.long().clamp(0, nsrc - 1)
     for xs in [xs_f, xs_i, xs_f.double()]:
-        out = g.take_rows(idxm, xs)
-        ref = g.take_rows_plain(idxm, xs)
-        torch.cuda.synchronize()
-        check(torch.equal(out, ref), f"K3 S=9 {xs.dtype} is not bitwise "
-              "equal to its plain version")
-        w = xs.element_size()
-        record(res, "take_rows", f"S=9 n={nc_pad} nsrc={nsrc} {xs.dtype}",
-               0.0,
-               lambda: g.take_rows(idxm, xs),
-               lambda: g.take_rows_plain(idxm, xs),
-               lambda: xs.index_select(1, idxm64),
-               nc_pad * 4 + 9 * (nc_pad + touched(idxm64)) * w)
+        record_take_rows(res, idxm, [xs], "")
+    # the Galerkin member fetch: relabelled columns, values, row lengths
+    nnz = torch.from_numpy(rs.randint(0, 10, (1, nsrc)).astype(np.int32)
+                           ).to(device)
+    for vals in (xs_f, xs_f.double()):
+        record_take_rows(res, idxm, [xs_i, vals, nnz], "")
+    # every route bitwise: an n % 4 tail and an index view at a 4-byte
+    # offset take the scalar route, for one to four mixed sources
+    for idx in (idxm[:nc_pad - 1], idxm[1:]):
+        for srcs in ([xs_f.double()], [xs_i, xs_f.double()],
+                     [xs_i, xs_f, nnz], [xs_i, xs_f.double(), nnz, xs_f]):
+            check(g.take_rows_route(idx, srcs) == "scalar",
+                  f"K3 n={idx.numel()} took the vector route")
+            for out, ref in zip(g.take_rows_many(idx, srcs),
+                                g.take_rows_many_plain(idx, srcs)):
+                check_bits(out, ref, f"K3 scalar n={idx.numel()} "
+                           f"{len(srcs)} sources")
+    log("kernel take_rows routes: scalar (tail of 3; idx at a 4-byte "
+        "offset) bitwise for 1-4 mixed sources")
+    record_take_rows(res, idxm[1:], [xs_i, xs_f, nnz],
+                     " (idx at a 4-byte offset)")
 
     # K4: the finest sharded level of poisson1000 on four shards, its
     # stored columns and a 1-D index with -1 sentinels, f32 and int32
@@ -377,7 +404,143 @@ def phase_kernels(device, problem) -> dict:
                lambda: g.take_sharded(idx, x, halo, npr, h),
                lambda: g.take_sharded_plain(idx, x, halo, npr, h), library,
                idx.numel() * (4 + w) + touched(ext_idx) * w)
-    return res
+    phase_main_shapes(device, problem, res)
+    return res, floor_ms
+
+
+def unaligned(idx):
+    """A copy of ``idx`` 4 bytes off 16-byte alignment: K2 and K3 take
+    their scalar route (one word per thread, the old kernels' layout) on
+    it, at the same shape and indices."""
+    import torch
+    buf = torch.empty(idx.numel() + 1, dtype=idx.dtype, device=idx.device)
+    out = buf[1:].view(idx.shape)
+    out.copy_(idx)
+    return out
+
+
+def check_bits(out, ref, what: str) -> None:
+    """``out`` equals ``ref`` bit for bit (dtype, shape and bytes)."""
+    import torch
+    torch.cuda.synchronize()
+    check(out.dtype == ref.dtype and out.shape == ref.shape
+          and torch.equal(out.reshape(-1).view(torch.uint8),
+                          ref.reshape(-1).view(torch.uint8)),
+          f"{what} is not bitwise equal to its plain version")
+
+
+def record_take(res, idx, x, tag: str) -> None:
+    """K2 on ``idx``/``x`` bitwise against its plain version, timed; a
+    bool field also beside the int32 round trip K2 replaced."""
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    check_bits(g.take(idx, x), g.take_plain(idx, x),
+               f"K2 idx {tuple(idx.shape)} x {x.dtype}")
+    extra = {}
+    if g.take_route(idx, x) == "vector":
+        iu = unaligned(idx)
+        check(g.take_route(iu, x) == "scalar", "K2 on an unaligned index "
+              "did not take the scalar route")
+        check_bits(g.take(iu, x), g.take(idx, x),
+                   "K2's scalar and vector routes")
+        extra["scalar_ms"] = lambda: g.take(iu, x)
+    if x.dtype == torch.bool:
+        def old():
+            return g.take(idx, x.to(torch.int32)) != 0
+        check(torch.equal(old(), g.take(idx, x)),
+              "K2 on a bool field differs from the int32 round trip")
+        extra["old_route_ms"] = old
+    idx64 = idx.long().clamp(0, x.shape[0] - 1).reshape(-1)
+    w = x.element_size()
+    record(res, "take", f"idx={tuple(idx.shape)} x={x.dtype} "
+           f"route={g.take_route(idx, x)}{tag}", 0.0,
+           lambda: g.take(idx, x), lambda: g.take_plain(idx, x),
+           lambda: torch.index_select(x, 0, idx64),
+           idx.numel() * (4 + w) + touched(idx64) * w, extra=extra)
+
+
+def record_take_rows(res, idx, srcs, tag: str) -> None:
+    """K3 on ``idx`` and the sources ``srcs`` bitwise against its plain
+    version, timed; several sources (``take_rows_many``) also beside one
+    ``take_rows`` launch per source, the route they replaced."""
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    n = idx.numel()
+    idx64 = idx.long().clamp(0, srcs[0].shape[1] - 1)
+    nbytes = n * 4 + sum(xs.shape[0] * (n + touched(idx64))
+                         * xs.element_size() for xs in srcs)
+    shape = (f"n={n} nsrc={srcs[0].shape[1]} sources="
+             + "+".join(f"{xs.shape[0]}x{str(xs.dtype)[6:]}" for xs in srcs)
+             + f" route={g.take_rows_route(idx, srcs)}{tag}")
+    extra = {}
+    if g.take_rows_route(idx, srcs) == "vector":
+        iu = unaligned(idx)
+        check(g.take_rows_route(iu, srcs) == "scalar", "K3 on an unaligned "
+              "index did not take the scalar route")
+        for out, ref in zip(g.take_rows_many(iu, srcs),
+                            g.take_rows_many(idx, srcs)):
+            check_bits(out, ref, "K3's scalar and vector routes")
+        extra["scalar_ms"] = lambda: g.take_rows_many(iu, srcs)
+    if len(srcs) == 1:
+        xs = srcs[0]
+        check_bits(g.take_rows(idx, xs), g.take_rows_plain(idx, xs),
+                   f"K3 {shape}")
+        record(res, "take_rows", shape, 0.0, lambda: g.take_rows(idx, xs),
+               lambda: g.take_rows_plain(idx, xs),
+               lambda: xs.index_select(1, idx64), nbytes, extra=extra)
+        return
+
+    def old():
+        return [g.take_rows(idx, xs) for xs in srcs]
+    for out, ref, prev in zip(g.take_rows_many(idx, srcs),
+                              g.take_rows_many_plain(idx, srcs), old()):
+        check_bits(out, ref, f"K3 {shape}")
+        check_bits(out, prev, f"K3 {shape} against one launch per source")
+    # no one library call gathers sources of several dtypes
+    extra["old_route_ms"] = old
+    record(res, "take_rows_many", shape, 0.0,
+           lambda: g.take_rows_many(idx, srcs),
+           lambda: g.take_rows_many_plain(idx, srcs), None, nbytes,
+           extra=extra)
+
+
+def phase_main_shapes(device, problem, res) -> None:
+    """K2 and K3 at the index arrays poisson1000 f32's first pass gives
+    them (level 0): the stored columns (strength's neighbour fields, the
+    matching's bool availability), the first round's proposals, the pairs
+    (labelling), and the aggregates' leaders and partners (Galerkin)."""
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.setup import matching
+    from multigridsolver_tpu_torch.setup.galerkin import pair_members
+    from multigridsolver_tpu_torch.setup.strength import compute_strength
+    from multigridsolver_tpu_torch.sparse.ops import (extract_diag,
+                                                      take_neighbor)
+    from multigridsolver_tpu_torch.utils.config import bench_config
+    agg = bench_config().aggregation
+    a = problem.to_ell(dtype=torch.float32, device=device)
+    st = compute_strength(a, agg.ktg, True, checkdd=agg.checkdd,
+                          trspos=agg.trspos, fracnegrcsum=agg.fracnegrcsum)
+    avail = ~st.excluded
+    prop = matching._best_neighbor(a, st.mu, st.allowed, avail,
+                                   matching._edge_hash(a))
+    paired = matching.mutual_match(a, st, agg.max_matching_rounds)
+    labels, nc = matching.labels_from_pairs(paired, st.excluded, a)
+    nc_pad = (nc + 1023) // 1024 * 1024
+    _, leader, partner, _ = pair_members(paired, labels, nc_pad)
+    lc_fine = take_neighbor(a, labels)
+    log(f"main-path shapes (the bench problem in f32, level 0, pass 1): "
+        f"n={a.nrows} K={a.k} npad={a.npad} nc={nc} nc_pad={nc_pad}")
+    record_take(res, a.cols, extract_diag(a), " main a.cols")
+    record_take(res, a.cols, avail, " main a.cols (available)")
+    record_take(res, prop.clamp_min(0), prop, " main prop")
+    agg_of_leader = torch.cumsum(paired >= 0, 0, dtype=torch.int32)
+    record_take(res, paired.clamp_min(0), agg_of_leader, " main paired")
+    record_take_rows(res, leader, [paired[None, :]],
+                     " main safe_leader (partner fetch)")
+    for members, tag in ((leader, "safe_leader"), (partner, "partner_of")):
+        record_take_rows(res, members, [lc_fine, a.vals, a.rownnz[None, :]],
+                         f" main {tag}")
 
 
 def phase_main_path(device, a) -> dict:
@@ -411,12 +574,29 @@ def phase_main_path(device, a) -> dict:
                     iterations=res.iterations, times=times, b=b, a_sp=a_sp)
 
     g.reset_launch_counts()
-    first = run(torch.float32, EXPECT_LEVELS)
+    with g.launch_shapes() as shapes:
+        first = run(torch.float32, EXPECT_LEVELS)
     counts = g.launch_counts()
     log(f"main path launches: {json.dumps(counts)}")
-    for name in ("gather_spmv", "hyb_spmv", "take", "take_rows"):
+    for name in ("gather_spmv", "hyb_spmv", "take", "take_rows",
+                 "take_rows_many"):
         check(counts[name] > 0,
               f"kernel {name} was not launched by the main path")
+    log_shapes(shapes)
+    # K3: per pass one partner fetch (take_rows) and one member fetch per
+    # member set (take_rows_many, three sources each)
+    passes = sum(len(r.passes) for r in first["setup"].rounds)
+    check(counts["take_rows"] == passes
+          and counts["take_rows_many"] == 2 * passes,
+          f"K3 launched {counts['take_rows']} + {counts['take_rows_many']} "
+          f"times over {passes} passes, not 1 + 2 per pass")
+    bool_takes = sum(c for (name, _, _, w), c in shapes.items()
+                     if name == "take" and w == 1)
+    check(bool_takes > 0, "no bool field went through K2 as bytes")
+    log(f"main path: {passes} passes, K3 launches {counts['take_rows']} + "
+        f"{counts['take_rows_many']} = "
+        f"{counts['take_rows'] + counts['take_rows_many']}; "
+        f"bool fields through K2 as bytes: {bool_takes}")
     mism = [mu_mismatches(m, cfg.aggregation)
             for m in first["setup"].matrices[:-1]]
     log(f"main path float32 mu bitwise symmetry, mismatches per level: "
@@ -442,6 +622,15 @@ def phase_main_path(device, a) -> dict:
     first["launches"] = counts
     first["f64"] = f64
     return first
+
+
+def log_shapes(shapes) -> None:
+    """The main path's launches by kernel and shape bucket, most launched
+    first: (n, S, word bytes) as ``gather.launch_shapes`` counts them."""
+    for (name, n, slots, w), c in sorted(shapes.items(),
+                                         key=lambda kv: (kv[0][0], -kv[1])):
+        log(f"main path shape bucket: {name} n={n} S={slots} w={w} "
+            f"launches={c}")
 
 
 def old_route(dvals, lanes, cols, vals, x):
@@ -700,7 +889,7 @@ def main() -> int:
         torch.cuda.set_device(device)
         phase_build()
         problem = poisson2d(BENCH_GRID)
-        kres = phase_kernels(device, problem)
+        kres, floor_ms = phase_kernels(device, problem)
         unsharded = phase_main_path(device, problem)
         phase_hyb(device, unsharded, kres)
         by_path = {"unsharded": unsharded["launches"],
@@ -716,10 +905,11 @@ def main() -> int:
                     launches_by_path={p: c[name] for p, c in by_path.items()},
                     **{k: kres[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms", "old_route_ms", "ldg_ms")
+                        "bound_by", "library_ms", "old_route_ms", "ldg_ms",
+                        "scalar_ms")
                        if k in kres[name]})
                for name in REPLACES]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

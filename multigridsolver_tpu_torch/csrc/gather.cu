@@ -12,7 +12,8 @@
 //       around it (multigridsolver_tpu/sparse/hybrid.py:223-242)
 //   K2  take         out[j] = x[clamp(idx[j])]   over a flat index array
 //       replaces windowed_take (_take_kernel)
-//   K3  take_rows    out[s, i] = xs[s, clamp(idx[i])]
+//   K3  take_rows    out_m[s, i] = xs_m[s, clamp(idx[i])] for up to four
+//                    sources m in one launch
 //       replaces windowed_take_rows (_take_rows_kernel)
 //   K4  take_sharded out[k, i] = [lo | x_local | hi][clamp(idx - shift)]
 //       replaces windowed_take_sharded (the shard_map halo exchange
@@ -75,6 +76,33 @@
 //   * the offsets come by value, in a __grid_constant__ struct of at most
 //     64 lanes: no host-to-device copy per call.
 //
+// K2 and K3 move words without reading them (1-, 4- or 8-byte words: a
+// bool field is gathered as its bytes), so every route gives its plain
+// version's bits.  The bound is bytes.  Their design:
+//
+//   * K2 (vector route): a thread takes 16 bytes of consecutive output
+//     words (4 words of 4 bytes, 2 of 8; 4 of 1 byte): one 16- or 8-byte
+//     load of idx, the gathers in flight together, one store.  The grid
+//     covers the array in one pass, with 32-bit index math; the launcher
+//     cuts an array of 2^31 words or more into chunks of 2^30.  The last
+//     thread takes the n % V words past the last group one by one.  An idx
+//     off 16-byte alignment (an idx view at an odd offset) takes the scalar
+//     route: one word per thread.  (4 words of 8 bytes a thread would need
+//     two 16-byte stores, each leaving 16-byte gaps across the warp; they
+//     read slower than one store on uniformly random indices.)
+//   * K3: one launch for up to four sources of their own row count and
+//     word size (4 or 8 bytes), by value in a __grid_constant__ struct, so
+//     the Galerkin member fetch (relabelled columns, values, row lengths)
+//     is one launch.  blockIdx.y takes one row of one source, so the
+//     word-size branch is the same for a whole block, and a thread moves
+//     16 bytes of that row as K2 does (4 or 2 positions from one int4 or
+//     int2 of idx; one position on the scalar route, for n % 4 != 0 or an
+//     unaligned idx).  Spreading the rows over the grid keeps as many
+//     gathers in flight as the old one-word-per-thread kernel did; a
+//     thread that walked all rows of its positions read slower than that
+//     kernel on uniformly random indices.  idx is read once per row, from
+//     L2 after the first.  No division, 32-bit index math.
+//
 // K4 on a row mesh: rows are split into ndev shards of npr rows, and shard
 // s may read its own rows plus h rows on either side.  The TPU kernel
 // concatenates [lo | x_local | hi] (lo, hi: the neighbours' boundary slabs
@@ -103,6 +131,19 @@ struct HybLanes {
   int omin;    // smallest and largest offset (0 when d == 0)
   int omax;
   int off[kMaxLanes];
+};
+
+constexpr int kMaxSources = 4;
+
+// K3's sources (the layout of ops/gather.py's RowSources): source m is
+// (rows[m], nsrc) of wbytes[m]-byte words at src[m], its output (rows[m],
+// n) at dst[m].
+struct RowSources {
+  int count;   // 1..kMaxSources
+  int rows[kMaxSources];
+  int wbytes[kMaxSources];   // 4 or 8
+  const void* src[kMaxSources];
+  void* dst[kMaxSources];
 };
 
 namespace {
@@ -287,36 +328,123 @@ hyb_spmv_kernel(const T* __restrict__ dvals,
   store(y + i0, acc);
 }
 
-// K2: one thread per output word, over the flattened index array.  W is
-// the word type (4 or 8 bytes): the kernel moves bits, so float, int32
-// and bool-as-int32 sources share the 4-byte instance.
+// ------------------------------------------------------------- K2, K3
+
+// words a thread moves on the vector routes of K2 and K3: 16 bytes of
+// output (one 16-byte store) for 4- and 8-byte words, 4 words (one 4-byte
+// store) for 1-byte words
+template <typename W> struct VecWords { static constexpr int V = 16 / sizeof(W); };
+template <> struct VecWords<unsigned char> { static constexpr int V = 4; };
+// K3's block on the vector route
+constexpr int kRowThreads = 128;
+
+// V indices from p (one 16- or 8-byte load for V = 4 or 2), each clamped
+// to [0, nsrc)
+template <int V>
+__device__ __forceinline__ void load_indices(const int* __restrict__ p,
+                                             int nsrc, int (&c)[V]) {
+  if constexpr (V == 4) {
+    const int4 t = __ldg(reinterpret_cast<const int4*>(p));
+    c[0] = t.x; c[1] = t.y; c[2] = t.z; c[3] = t.w;
+  } else if constexpr (V == 2) {
+    const int2 t = __ldg(reinterpret_cast<const int2*>(p));
+    c[0] = t.x; c[1] = t.y;
+  } else {
+    c[0] = __ldg(p);
+  }
+#pragma unroll
+  for (int r = 0; r < V; ++r) c[r] = clamp_index(c[r], nsrc);
+}
+
+// V words to p in one store (p aligned to V words)
+__device__ __forceinline__ void store_words(unsigned char* p,
+                                            const unsigned char (&v)[4]) {
+  *reinterpret_cast<uint32_t*>(p) = v[0] | (v[1] << 8) | (v[2] << 16)
+                                    | (static_cast<uint32_t>(v[3]) << 24);
+}
+__device__ __forceinline__ void store_words(uint32_t* p,
+                                            const uint32_t (&v)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_words(unsigned long long* p,
+                                            const unsigned long long (&v)[2]) {
+  *reinterpret_cast<ulonglong2*>(p) = make_ulonglong2(v[0], v[1]);
+}
 template <typename W>
-__global__ void take_kernel(const int* __restrict__ idx,
-                            const W* __restrict__ x,
-                            W* __restrict__ out,
-                            int64_t n, int nsrc) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < n; j += stride) {
-    out[j] = __ldg(x + clamp_index(idx[j], nsrc));
+__device__ __forceinline__ void store_words(W* p, const W (&v)[1]) {
+  *p = v[0];
+}
+
+// out[i0, i0 + V) = x[idx[i0, i0 + V)]: the V gathers are in flight
+// together, then one store
+template <typename W, int V>
+__device__ __forceinline__ void gather_words(const int* __restrict__ idx,
+                                             const W* __restrict__ x,
+                                             W* __restrict__ out, int nsrc,
+                                             int i0) {
+  int c[V];
+  load_indices<V>(idx + i0, nsrc, c);
+  W v[V];
+#pragma unroll
+  for (int r = 0; r < V; ++r) v[r] = __ldg(x + c[r]);
+  store_words(out + i0, v);
+}
+
+// K2, vector route: thread t takes words [Vt, Vt + V); the thread whose
+// group passes n takes what is left of it one word at a time.  W is the
+// word type (1, 4 or 8 bytes).
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+take_vec_kernel(const int* __restrict__ idx, const W* __restrict__ x,
+                W* __restrict__ out, int n, int nsrc) {
+  constexpr int V = VecWords<W>::V;
+  const int j0 = (blockIdx.x * kThreads + threadIdx.x) * V;
+  if (j0 + V <= n) {
+    gather_words<W, V>(idx, x, out, nsrc, j0);
+  } else {
+    for (int j = j0; j < n; ++j) out[j] = __ldg(x + clamp_index(idx[j], nsrc));
   }
 }
 
-// K3: one thread per (s, i); xs is (S, nsrc) row-major, out (S, n).
+// K2, scalar route: one word per thread
 template <typename W>
-__global__ void take_rows_kernel(const int* __restrict__ idx,
-                                 const W* __restrict__ xs,
-                                 W* __restrict__ out,
-                                 int S, int n, int nsrc) {
-  const int64_t total = static_cast<int64_t>(S) * n;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < total; j += stride) {
-    const int64_t s = j / n;
-    const int i = static_cast<int>(j - s * n);
-    out[j] = __ldg(xs + s * nsrc + clamp_index(idx[i], nsrc));
+__global__ void __launch_bounds__(kThreads)
+take_scalar_kernel(const int* __restrict__ idx, const W* __restrict__ x,
+                   W* __restrict__ out, int n, int nsrc) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j < n) out[j] = __ldg(x + clamp_index(idx[j], nsrc));
+}
+
+// K3: blockIdx.y is one row of one source (the sources' rows in order),
+// blockIdx.x * blockDim.x + threadIdx.x the thread's place along it.  On
+// the vector route (kVec: n % 4 == 0, idx 16-byte aligned) a thread moves
+// 16 bytes of the row, VecWords<W>::V positions, else one position.  The
+// grid is sized for the narrowest word; threads past n return.
+template <bool kVec>
+__global__ void __launch_bounds__(kVec ? kRowThreads : kThreads)
+take_rows_kernel(const int* __restrict__ idx,
+                 const __grid_constant__ RowSources srcs, int n, int nsrc) {
+  int m = 0;
+  int s = blockIdx.y;
+  while (s >= srcs.rows[m]) s -= srcs.rows[m++];
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (srcs.wbytes[m] == 4) {
+    constexpr int V = kVec ? VecWords<uint32_t>::V : 1;
+    if (t * V >= n) return;
+    gather_words<uint32_t, V>(
+        idx, static_cast<const uint32_t*>(srcs.src[m]) + s * nsrc,
+        static_cast<uint32_t*>(srcs.dst[m]) + s * n, nsrc, t * V);
+  } else {
+    constexpr int V = kVec ? VecWords<unsigned long long>::V : 1;
+    if (t * V >= n) return;
+    gather_words<unsigned long long, V>(
+        idx, static_cast<const unsigned long long*>(srcs.src[m]) + s * nsrc,
+        static_cast<unsigned long long*>(srcs.dst[m]) + s * n, nsrc, t * V);
   }
 }
+
+// an empty kernel: the floor of a launch as time_ms reads it
+__global__ void empty_kernel() {}
 
 // K4: one thread per slot over the flattened (K, npad) or (npad,) index
 // array, npad = ndev * npr; slot j belongs to row i = j % npad of shard
@@ -440,23 +568,69 @@ int launch_hyb(const void* dvals, const HybLanes* lanes, const void* cols,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2's and K3's routes: which instance a call takes
+enum TakeRoute { kTakeScalar = 0, kTakeVector = 1 };
+
+// out may be null (the wrapper allocates it 16-byte aligned)
+int take_route(const void* idx, const void* out) {
+  return aligned16(idx) && aligned16(out) ? kTakeVector : kTakeScalar;
+}
+
+int take_rows_route(const void* idx, const RowSources* srcs, int n) {
+  bool vec = n % 4 == 0 && aligned16(idx);
+  for (int m = 0; srcs != nullptr && m < srcs->count; ++m) {
+    vec = vec && aligned16(srcs->dst[m]);
+  }
+  return vec ? kTakeVector : kTakeScalar;
+}
+
+// K2 launches at most this many words at a time (a multiple of 16, so
+// every chunk keeps the first one's alignment): its index math is 32-bit
+constexpr int64_t kTakeChunk = int64_t(1) << 30;
+
 template <typename W>
 int launch_take(const void* idx, const void* x, void* out, int64_t n,
                 int nsrc, void* stream) {
-  take_kernel<W><<<grid_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const W*>(x),
-      static_cast<W*>(out), n, nsrc);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = take_route(idx, out) == kTakeVector;
+  for (int64_t base = 0; base < n; base += kTakeChunk) {
+    const int m = static_cast<int>(n - base < kTakeChunk ? n - base
+                                                         : kTakeChunk);
+    const int* ib = static_cast<const int*>(idx) + base;
+    W* ob = static_cast<W*>(out) + base;
+    if (vec) {
+      constexpr int V = VecWords<W>::V;
+      const int blocks = ((m + V - 1) / V + kThreads - 1) / kThreads;
+      take_vec_kernel<W><<<blocks, kThreads, 0, s>>>(
+          ib, static_cast<const W*>(x), ob, m, nsrc);
+    } else {
+      const int blocks = (m + kThreads - 1) / kThreads;
+      take_scalar_kernel<W><<<blocks, kThreads, 0, s>>>(
+          ib, static_cast<const W*>(x), ob, m, nsrc);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
-template <typename W>
-int launch_take_rows(const void* idx, const void* xs, void* out, int S,
-                     int n, int nsrc, void* stream) {
-  take_rows_kernel<W><<<grid_for(static_cast<int64_t>(S) * n), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const W*>(xs),
-      static_cast<W*>(out), S, n, nsrc);
+int launch_take_rows(const void* idx, const RowSources* srcs, int n,
+                     int nsrc, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ip = static_cast<const int*>(idx);
+  int rows = 0;
+  int vmin = VecWords<uint32_t>::V;
+  for (int m = 0; m < srcs->count; ++m) {
+    rows += srcs->rows[m];
+    if (srcs->wbytes[m] == 8) vmin = VecWords<unsigned long long>::V;
+  }
+  if (take_rows_route(idx, srcs, n) == kTakeVector) {
+    const dim3 grid((n / vmin + kRowThreads - 1) / kRowThreads, rows);
+    take_rows_kernel<true><<<grid, kRowThreads, 0, s>>>(ip, *srcs, n, nsrc);
+  } else {
+    const dim3 grid((n + kThreads - 1) / kThreads, rows);
+    take_rows_kernel<false><<<grid, kThreads, 0, s>>>(ip, *srcs, n, nsrc);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -507,6 +681,11 @@ int mgs_hyb_route_f64(const void* dvals, const HybLanes* lanes,
                            window_bytes);
 }
 
+int mgs_take_w1(const void* idx, const void* x, void* out, long long n,
+                int nsrc, void* stream) {
+  return launch_take<unsigned char>(idx, x, out, n, nsrc, stream);
+}
+
 int mgs_take_w4(const void* idx, const void* x, void* out, long long n,
                 int nsrc, void* stream) {
   return launch_take<uint32_t>(idx, x, out, n, nsrc, stream);
@@ -517,15 +696,23 @@ int mgs_take_w8(const void* idx, const void* x, void* out, long long n,
   return launch_take<unsigned long long>(idx, x, out, n, nsrc, stream);
 }
 
-int mgs_take_rows_w4(const void* idx, const void* xs, void* out, int S,
-                     int n, int nsrc, void* stream) {
-  return launch_take_rows<uint32_t>(idx, xs, out, S, n, nsrc, stream);
+// the route a K2 call with this idx takes (TakeRoute); out as the
+// wrapper allocates it, 16-byte aligned
+int mgs_take_route(const void* idx) { return take_route(idx, nullptr); }
+
+int mgs_take_rows(const void* idx, const RowSources* srcs, int n, int nsrc,
+                  void* stream) {
+  return launch_take_rows(idx, srcs, n, nsrc, stream);
 }
 
-int mgs_take_rows_w8(const void* idx, const void* xs, void* out, int S,
-                     int n, int nsrc, void* stream) {
-  return launch_take_rows<unsigned long long>(idx, xs, out, S, n, nsrc,
-                                              stream);
+// the route a K3 call with this idx of n positions takes (TakeRoute)
+int mgs_take_rows_route(const void* idx, int n) {
+  return take_rows_route(idx, nullptr, n);
+}
+
+int mgs_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 int mgs_take_sharded_w4(const void* idx, const void* x, const void* halo,

@@ -11,11 +11,13 @@ the AGMG main path and its row-sharded variant:
   ``windowed_gather_spmv`` (``multigridsolver_tpu/ops/gather_pallas.py``)
   and the XLA-fused DIA pass around it
   (``multigridsolver_tpu/sparse/hybrid.py``).
-* **K2** :func:`take` — ``out[...] = x[idx[...]]``: every neighbour-field
-  gather of strength, matching, labelling and Galerkin.  Replaces
-  ``windowed_take``.
-* **K3** :func:`take_rows` — ``out[s, i] = xs[s, idx[i]]``: the Galerkin
-  member-row fetch.  Replaces ``windowed_take_rows``.
+* **K2** :func:`take` — ``out[...] = x[idx[...]]`` for 1-, 4- and 8-byte
+  words (bool fields as bytes): every neighbour-field gather of strength,
+  matching, labelling and Galerkin.  Replaces ``windowed_take``.
+* **K3** :func:`take_rows_many` — ``out_m[s, i] = xs_m[s, idx[i]]`` for
+  up to four sources in one launch: the Galerkin member-row fetch (one
+  launch per member set); :func:`take_rows` is its one-source entry.
+  Replaces ``windowed_take_rows``.
 * **K4** :func:`take_sharded` — K2 on a row mesh: each shard gathers from
   its own rows and an exchanged halo of ``h`` rows on either side; every
   finest-level neighbour gather of the sharded setup.  Replaces
@@ -39,6 +41,8 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -55,9 +59,15 @@ MAX_LANES = 64
 WINDOW_BYTES = 47 * 1024
 # K1's routes (HybRoute in gather.cu)
 HYB_ROUTES = ("scalar", "vector", "window")
+# K2's and K3's routes (TakeRoute in gather.cu)
+TAKE_ROUTES = ("scalar", "vector")
+# K3 takes at most this many sources in one launch
+MAX_SOURCES = 4
 
 _lib = None
 _lib_lock = threading.Lock()
+# launches by kernel and shape while :func:`launch_shapes` is open
+_shapes: Counter | None = None
 
 
 class HybLanes(ctypes.Structure):
@@ -134,14 +144,19 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [p, lanes, p, p, p, i, i, i]
                 fn.restype = i
-            for name in ("mgs_take_w4", "mgs_take_w8"):
+            for name in ("mgs_take_w1", "mgs_take_w4", "mgs_take_w8"):
                 fn = getattr(lib, name)
                 fn.argtypes = [p, p, p, ctypes.c_longlong, i, p]
                 fn.restype = i
-            for name in ("mgs_take_rows_w4", "mgs_take_rows_w8"):
-                fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, i, i, i, p]
-                fn.restype = i
+            lib.mgs_take_route.argtypes = [p]
+            lib.mgs_take_route.restype = i
+            lib.mgs_take_rows.argtypes = [p, ctypes.POINTER(RowSources), i,
+                                          i, p]
+            lib.mgs_take_rows.restype = i
+            lib.mgs_take_rows_route.argtypes = [p, i]
+            lib.mgs_take_rows_route.restype = i
+            lib.mgs_empty.argtypes = [p]
+            lib.mgs_empty.restype = i
             for name in ("mgs_take_sharded_w4", "mgs_take_sharded_w8"):
                 fn = getattr(lib, name)
                 fn.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, p]
@@ -175,12 +190,11 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _words(t: torch.Tensor) -> torch.Tensor:
-    """Reinterpret a 4- or 8-byte tensor as integer words (bits only)."""
-    size = t.element_size()
-    _require(t.dtype != torch.bool and size in (4, 8),
-             f"gather source must hold 4- or 8-byte words, got {t.dtype}")
-    return t.view(torch.int32 if size == 4 else torch.int64)
+def _check_words(t: torch.Tensor, sizes: tuple) -> None:
+    """A gather source's words must be of one of ``sizes`` bytes (the
+    kernels move bits; bool is a 1-byte word)."""
+    _require(t.element_size() in sizes, f"gather source must hold words of "
+             f"{sizes} bytes, got {t.dtype}")
 
 
 def _int_max(n: int) -> None:
@@ -189,6 +203,32 @@ def _int_max(n: int) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@contextmanager
+def launch_shapes():
+    """Count every kernel launch inside the block by kernel and shape
+    bucket ``(name, n, S, word bytes)``: n rows or index positions, S
+    slots (K1, K2, K4), each source's rows (K3) or (DIA lanes, slots)
+    (``hyb_spmv``); K3's word bytes per source.  Yields the Counter."""
+    global _shapes
+    _shapes = Counter()
+    try:
+        yield _shapes
+    finally:
+        _shapes = None
+
+
+def _log_shape(name: str, n: int, s, w) -> None:
+    if _shapes is not None:
+        _shapes[(name, n, s, w)] += 1
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch an empty kernel (the floor of a launch's device time)."""
+    with torch.cuda.device(device):
+        _check(load_library().mgs_empty(
+            torch.cuda.current_stream(device).cuda_stream), "empty")
 
 
 # --------------------------------------------------------------------- K1
@@ -303,6 +343,10 @@ def hyb_spmv(dvals: torch.Tensor, lanes: HybLanes,
         return hyb_spmv_plain(dvals, lanes, cols, vals, x)
     y = _k1(dvals, lanes, cols, vals, x, dvals.shape[1], "hyb_spmv")
     hyb_spmv.launches += 1
+    if _shapes is not None:
+        _log_shape("hyb_spmv", dvals.shape[1],
+                   (lanes.d, 0 if cols is None else cols.shape[0]),
+                   x.element_size())
     return y
 
 
@@ -347,6 +391,7 @@ def gather_spmv(cols: torch.Tensor, vals: torch.Tensor,
              and x.is_contiguous(), "K1 needs contiguous tensors")
     y = _k1(None, NO_LANES, cols, vals, x, cols.shape[1], "gather_spmv")
     gather_spmv.launches += 1
+    _log_shape("gather_spmv", cols.shape[1], cols.shape[0], x.element_size())
     return y
 
 
@@ -360,16 +405,21 @@ def take_plain(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x[idx.long().clamp_(0, x.shape[0] - 1)]
 
 
+def _check_take(idx: torch.Tensor, x: torch.Tensor) -> None:
+    _require(idx.dtype == torch.int32, f"idx must be int32, got {idx.dtype}")
+    _require(x.dim() == 1 and x.shape[0] > 0, "x must be a non-empty vector")
+    _check_words(x, (1, 4, 8))
+
+
 def take(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K2: ``out[...] = x[clamp(idx[...], 0, len(x) - 1)]``.
 
     ``idx`` is int32 of any shape (``(K, npad)`` slot fields or a 1-D
-    index vector); ``x`` is a vector of 4-byte (float32, int32) or 8-byte
-    (float64, int64) words.  The output has ``idx``'s shape and ``x``'s
-    dtype."""
-    _require(idx.dtype == torch.int32, f"idx must be int32, got {idx.dtype}")
-    _require(x.dim() == 1 and x.shape[0] > 0, "x must be a non-empty vector")
-    words = _words(x)
+    index vector); ``x`` is a vector of 1-byte (bool, uint8, int8), 4-byte
+    (float32, int32) or 8-byte (float64, int64) words.  The output has
+    ``idx``'s shape and ``x``'s dtype: a bool field comes back as bool,
+    its bytes gathered as they are."""
+    _check_take(idx, x)
     if not _on_cuda(idx, x):
         return take_plain(idx, x)
     _require(idx.is_contiguous() and x.is_contiguous(),
@@ -380,58 +430,144 @@ def take(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     lib = load_library()
-    fn = lib.mgs_take_w4 if x.element_size() == 4 else lib.mgs_take_w8
+    fn = {1: lib.mgs_take_w1, 4: lib.mgs_take_w4,
+          8: lib.mgs_take_w8}[x.element_size()]
     with torch.cuda.device(x.device):
-        rc = fn(idx.data_ptr(), words.data_ptr(), out.data_ptr(), n,
-                x.shape[0], _stream(x))
+        rc = fn(idx.data_ptr(), x.data_ptr(), out.data_ptr(), n, x.shape[0],
+                _stream(x))
     _check(rc, "take")
     take.launches += 1
+    if _shapes is not None:
+        rows = idx.shape[-1] if idx.dim() else 1
+        _log_shape("take", rows, n // rows, x.element_size())
     return out
 
 
 take.launches = 0
 
 
+def take_route(idx: torch.Tensor, x: torch.Tensor) -> str:
+    """Which instance :func:`take` launches for these CUDA tensors:
+    ``"vector"`` (16 bytes of output a thread: 4 words of 1 or 4 bytes, 2
+    of 8; the last thread takes the tail) or ``"scalar"`` (one word a
+    thread, for an ``idx`` off 16-byte alignment)."""
+    _check_take(idx, x)
+    return TAKE_ROUTES[load_library().mgs_take_route(idx.data_ptr())]
+
+
 # --------------------------------------------------------------------- K3
 
+class RowSources(ctypes.Structure):
+    """K3's sources as its kernel takes them by value: source ``m`` is
+    ``(rows[m], nsrc)`` of ``wbytes[m]``-byte words at ``src[m]``, its
+    output ``(rows[m], n)`` at ``dst[m]``."""
+
+    _fields_ = [("count", ctypes.c_int),
+                ("rows", ctypes.c_int * MAX_SOURCES),
+                ("wbytes", ctypes.c_int * MAX_SOURCES),
+                ("src", ctypes.c_void_p * MAX_SOURCES),
+                ("dst", ctypes.c_void_p * MAX_SOURCES)]
+
+
 def take_rows_plain(idx: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """Plain version of K3: ``xs[:, clamp(idx)]``."""
+    """Plain version of K3 with one source: ``xs[:, clamp(idx)]``."""
     return xs[:, idx.long().clamp_(0, xs.shape[1] - 1)]
 
 
-def take_rows(idx: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """K3: ``out[s, i] = xs[s, clamp(idx[i], 0, nsrc - 1)]`` — S source
-    rows gathered at one int32 index vector; ``xs`` is ``(S, nsrc)`` of
-    4- or 8-byte words, the output ``(S, len(idx))``."""
+def take_rows_many_plain(idx: torch.Tensor, sources) -> list[torch.Tensor]:
+    """Plain version of K3: :func:`take_rows_plain` of each source."""
+    return [take_rows_plain(idx, xs) for xs in sources]
+
+
+def _check_rows(idx: torch.Tensor, sources) -> None:
     _require(idx.dtype == torch.int32 and idx.dim() == 1,
              f"idx must be a 1-D int32 vector, got {idx.dtype} "
              f"{tuple(idx.shape)}")
-    _require(xs.dim() == 2 and xs.shape[1] > 0,
-             "xs must be (S, nsrc) with nsrc > 0")
-    words = _words(xs)
+    _require(1 <= len(sources) <= MAX_SOURCES,
+             f"K3 takes 1 to {MAX_SOURCES} sources, got {len(sources)}")
+    nsrc = sources[0].shape[-1]
+    for xs in sources:
+        _require(xs.dim() == 2 and xs.shape[1] == nsrc and nsrc > 0,
+                 f"every source must be (S, nsrc) with one nsrc > 0, got "
+                 f"{[tuple(x.shape) for x in sources]}")
+        _check_words(xs, (4, 8))
+
+
+def _k3(idx: torch.Tensor, sources, name: str) -> list[torch.Tensor]:
+    """Launch K3 on checked CUDA tensors (``sources`` non-empty, one
+    nsrc); returns one ``(S_m, len(idx))`` output per source."""
+    _require(idx.is_contiguous() and all(xs.is_contiguous()
+                                         for xs in sources),
+             "K3 needs contiguous tensors")
+    n, nsrc = idx.shape[0], sources[0].shape[1]
+    for xs in sources:
+        _int_max(xs.shape[0] * nsrc)
+        _int_max(xs.shape[0] * n)
+    outs = [torch.empty((xs.shape[0], n), dtype=xs.dtype, device=xs.device)
+            for xs in sources]
+    rows = sum(xs.shape[0] for xs in sources)
+    _require(rows < 65536, f"K3 takes fewer than 65536 rows, got {rows}")
+    if n * rows == 0:
+        return outs
+    spec = RowSources(len(sources))
+    for m, (xs, out) in enumerate(zip(sources, outs)):
+        spec.rows[m] = xs.shape[0]
+        spec.wbytes[m] = xs.element_size()
+        spec.src[m] = xs.data_ptr()
+        spec.dst[m] = out.data_ptr()
+    with torch.cuda.device(idx.device):
+        rc = load_library().mgs_take_rows(idx.data_ptr(), spec, n, nsrc,
+                                          _stream(idx))
+    _check(rc, name)
+    if _shapes is not None:
+        _log_shape(name, n, tuple(xs.shape[0] for xs in sources),
+                   tuple(xs.element_size() for xs in sources))
+    return outs
+
+
+def take_rows(idx: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """K3 with one source: ``out[s, i] = xs[s, clamp(idx[i], 0, nsrc -
+    1)]`` — S source rows gathered at one int32 index vector; ``xs`` is
+    ``(S, nsrc)`` of 4- or 8-byte words, the output ``(S, len(idx))``."""
+    _check_rows(idx, [xs])
     if not _on_cuda(idx, xs):
         return take_rows_plain(idx, xs)
-    _require(idx.is_contiguous() and xs.is_contiguous(),
-             "K3 needs contiguous tensors")
-    S, nsrc = xs.shape
-    n = idx.shape[0]
-    _int_max(S * nsrc)
-    _int_max(S * n)
-    out = torch.empty((S, n), dtype=xs.dtype, device=xs.device)
-    if S * n == 0:
-        return out
-    lib = load_library()
-    fn = lib.mgs_take_rows_w4 if xs.element_size() == 4 \
-        else lib.mgs_take_rows_w8
-    with torch.cuda.device(xs.device):
-        rc = fn(idx.data_ptr(), words.data_ptr(), out.data_ptr(), S, n, nsrc,
-                _stream(xs))
-    _check(rc, "take_rows")
-    take_rows.launches += 1
+    out = _k3(idx, [xs], "take_rows")[0]
+    if out.numel():
+        take_rows.launches += 1
     return out
 
 
 take_rows.launches = 0
+
+
+def take_rows_many(idx: torch.Tensor, sources) -> list[torch.Tensor]:
+    """K3: :func:`take_rows` of up to four sources at one index vector, in
+    one launch.  Each source is ``(S_m, nsrc)`` (one nsrc for all) of its
+    own 4- or 8-byte words; the outputs are ``(S_m, len(idx))``, in the
+    sources' order."""
+    sources = list(sources)
+    _check_rows(idx, sources)
+    if not _on_cuda(idx, *sources):
+        return take_rows_many_plain(idx, sources)
+    outs = _k3(idx, sources, "take_rows_many")
+    if any(out.numel() for out in outs):
+        take_rows_many.launches += 1
+    return outs
+
+
+take_rows_many.launches = 0
+
+
+def take_rows_route(idx: torch.Tensor, sources) -> str:
+    """Which instance :func:`take_rows_many` (and :func:`take_rows`)
+    launches for these CUDA tensors: ``"vector"`` (16 bytes of a row a
+    thread; ``len(idx) % 4 == 0`` and ``idx`` 16-byte aligned) or
+    ``"scalar"``."""
+    sources = list(sources)
+    _check_rows(idx, sources)
+    return TAKE_ROUTES[load_library().mgs_take_rows_route(idx.data_ptr(),
+                                                          idx.shape[0])]
 
 
 # --------------------------------------------------------------------- K4
@@ -473,7 +609,7 @@ def take_sharded(idx: torch.Tensor, x: torch.Tensor, halo: torch.Tensor,
              f"{tuple(idx.shape)}")
     _require(halo.dtype == x.dtype, f"halo {halo.dtype} and x {x.dtype} "
              "must share one dtype")
-    words = _words(x)
+    _check_words(x, (4, 8))
     if not _on_cuda(idx, x, halo):
         return take_sharded_plain(idx, x, halo, npr, h)
     _require(idx.is_contiguous() and x.is_contiguous()
@@ -487,10 +623,12 @@ def take_sharded(idx: torch.Tensor, x: torch.Tensor, halo: torch.Tensor,
     fn = lib.mgs_take_sharded_w4 if x.element_size() == 4 \
         else lib.mgs_take_sharded_w8
     with torch.cuda.device(x.device):
-        rc = fn(idx.data_ptr(), words.data_ptr(), _words(halo).data_ptr(),
+        rc = fn(idx.data_ptr(), x.data_ptr(), halo.data_ptr(),
                 out.data_ptr(), n, ndev * npr, npr, h, _stream(x))
     _check(rc, "take_sharded")
     take_sharded.launches += 1
+    _log_shape("take_sharded", idx.shape[-1], n // idx.shape[-1],
+               x.element_size())
     return out
 
 
@@ -498,7 +636,8 @@ take_sharded.launches = 0
 
 
 KERNELS = {"gather_spmv": gather_spmv, "hyb_spmv": hyb_spmv, "take": take,
-           "take_rows": take_rows, "take_sharded": take_sharded}
+           "take_rows": take_rows, "take_rows_many": take_rows_many,
+           "take_sharded": take_sharded}
 
 
 def reset_launch_counts() -> None:

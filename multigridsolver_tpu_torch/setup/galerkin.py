@@ -14,14 +14,12 @@ from ..sparse import ops as ell_ops
 from ..sparse.formats import ELL
 
 
-def galerkin_pair_arrays(a: ELL, paired: torch.Tensor, labels: torch.Tensor,
-                         nc: int):
-    """Coarse ELL arrays at padded coarse size ``nc``.
-
-    Returns (cols, vals, rownnz, info) with slot width 2K and
-    info = [nnz_c, max_degree] (one device tensor)."""
-    k, npad, dev = a.k, a.npad, a.device
-    nodes = torch.arange(npad, dtype=torch.int32, device=dev)
+def pair_members(paired: torch.Tensor, labels: torch.Tensor, nc: int):
+    """Each coarse row's members at padded coarse size ``nc``: (real,
+    safe_leader, partner_of, has_partner), each (nc,).  ``safe_leader``
+    is 0 and ``partner_of`` the leader where a row is not ``real``."""
+    dev = paired.device
+    nodes = torch.arange(paired.shape[0], dtype=torch.int32, device=dev)
     active = labels >= 0
     # leader of each aggregate: its smaller member index
     lead = torch.minimum(nodes, torch.where(paired >= 0, paired, nodes))
@@ -38,18 +36,30 @@ def galerkin_pair_arrays(a: ELL, paired: torch.Tensor, labels: torch.Tensor,
     partner_of = ell_ops.take_member_rows(safe_leader, paired[None, :])[0]
     partner_of = torch.where(real & (partner_of >= 0), partner_of,
                              safe_leader)
-    has_partner = real & (partner_of != safe_leader)
+    return real, safe_leader, partner_of, real & (partner_of != safe_leader)
 
+
+def galerkin_pair_arrays(a: ELL, paired: torch.Tensor, labels: torch.Tensor,
+                         nc: int):
+    """Coarse ELL arrays at padded coarse size ``nc``.
+
+    Returns (cols, vals, rownnz, info) with slot width 2K and
+    info = [nnz_c, max_degree] (one device tensor)."""
+    k, dev = a.k, a.device
+    real, safe_leader, partner_of, has_partner = pair_members(paired, labels,
+                                                              nc)
     # relabel the slot columns once on the fine side (K2), then fetch the
-    # members' whole relabelled rows (K3)
-    lc_fine = ell_ops.take_neighbor(a, torch.where(active, labels, -1)
+    # members' whole relabelled rows, values and row lengths (one K3
+    # launch per member set)
+    lc_fine = ell_ops.take_neighbor(a, torch.where(labels >= 0, labels, -1)
                                     .to(torch.int32))
     sl = torch.arange(k, dtype=torch.int32, device=dev)[:, None]
 
     def member_rows(members):
-        cols_m = ell_ops.take_member_rows(members, lc_fine)       # (K, nc)
-        vals_m = ell_ops.take_member_rows(members, a.vals)
-        nnz_m = ell_ops.take_member_rows(members, a.rownnz[None, :])[0]
+        # (K, nc), (K, nc), (1, nc)
+        cols_m, vals_m, nnz_m = ell_ops.take_member_rows_many(
+            members, [lc_fine, a.vals, a.rownnz[None, :]])
+        nnz_m = nnz_m[0]
         ok = (sl < nnz_m[None, :]) & real[None, :] & (cols_m >= 0)
         return torch.where(ok, cols_m, nc), torch.where(ok, vals_m, 0.0)
 

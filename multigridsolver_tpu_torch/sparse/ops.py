@@ -2,7 +2,8 @@
 
 Reductions over a row's slots are reductions over axis 0.  Every gather
 goes through the kernels of :mod:`..ops.gather`: neighbour fields through
-K2 (K4 on a row-sharded ELL), member-row fetches through K3, SpMV through
+K2 (K4 on a row-sharded ELL), member-row fetches through K3 (one launch
+per member set), SpMV through
 K1 (``gather_spmv`` for an ELL, ``hyb_spmv`` for a DIA+ELL hybrid).
 """
 from __future__ import annotations
@@ -28,17 +29,17 @@ def take_neighbor(a: ELL, x: torch.Tensor,
     Entries at invalid slots (slot ≥ rownnz[i], padding rows) and at
     out-of-range indices are unspecified: every consumer masks them.
     ``x``: (m,) of 4- or 8-byte words (float32/float64/int32/int64) or
-    bool (bool travels as int32); on a sharded ELL m = npad.
+    bool; on a sharded ELL m = npad.  K2 gathers a bool field as its
+    bytes; K4 takes it as int32.
     """
     if idx is None:
         idx = a.cols
+    if a.shard is None:
+        return gather.take(idx.contiguous(), x.contiguous())
+    mesh, npr, h = a.shard
     xw = x.to(torch.int32) if x.dtype == torch.bool else x.contiguous()
-    if a.shard is not None:
-        mesh, npr, h = a.shard
-        out = gather.take_sharded(idx.contiguous(), xw,
-                                  mesh.boundary_halo(xw, h), npr, h)
-    else:
-        out = gather.take(idx.contiguous(), xw)
+    out = gather.take_sharded(idx.contiguous(), xw,
+                              mesh.boundary_halo(xw, h), npr, h)
     return out != 0 if x.dtype == torch.bool else out
 
 
@@ -49,6 +50,13 @@ def take_member_rows(members: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
         return gather.take_rows(members.contiguous(),
                                 xs.to(torch.int32)) != 0
     return gather.take_rows(members.contiguous(), xs.contiguous())
+
+
+def take_member_rows_many(members: torch.Tensor, sources) -> list:
+    """:func:`take_member_rows` of up to four sources (each ``(S_m, n)``
+    of 4- or 8-byte words) in one K3 launch."""
+    return gather.take_rows_many(members.contiguous(),
+                                 [xs.contiguous() for xs in sources])
 
 
 def spmv(a, x: torch.Tensor) -> torch.Tensor:

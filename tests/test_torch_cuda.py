@@ -63,7 +63,94 @@ def test_kernels_match_plain_versions(device, dtype):
     assert torch.equal(g.take_rows(idx, tv), g.take_rows_plain(idx, tv))
     torch.cuda.synchronize()
     assert g.launch_counts() == {"gather_spmv": 1, "hyb_spmv": 0, "take": 2,
-                                 "take_rows": 1, "take_sharded": 0}
+                                 "take_rows": 1, "take_rows_many": 0,
+                                 "take_sharded": 0}
+
+
+def words(rs, n, dtype, device):
+    """n random words of ``dtype`` (every bit pattern for the integers)."""
+    if dtype == torch.bool:
+        return torch.from_numpy(rs.rand(n) < 0.5).to(device)
+    if dtype.is_floating_point:
+        return torch.from_numpy(rs.rand(n)).to(device, dtype)
+    info = torch.iinfo(dtype)
+    return torch.from_numpy(rs.randint(info.min, info.max, n,
+                                       dtype=np.int64)).to(device, dtype)
+
+
+WORD_DTYPES = [torch.bool, torch.uint8, torch.int8, torch.int32,
+               torch.float32, torch.float64, torch.int64]
+
+
+@pytest.mark.parametrize("dtype", WORD_DTYPES)
+def test_take_routes_match_plain_version(device, dtype):
+    """K2 on each route, bitwise its plain version: the vector route on a
+    (K, npad) slot field and on a 1-D index with -1 sentinels, with a
+    tail past the last word group, and the scalar route on an index view
+    at a 4-byte offset; bool in gives bool out."""
+    rs = np.random.RandomState(23)
+    nsrc = 40000
+    x = words(rs, nsrc, dtype, device)
+    cols, _ = banded(rs, nsrc, 5, 700)
+    flat = torch.from_numpy(rs.randint(-1, nsrc, 10007).astype(np.int32)
+                            ).to(device)
+    cases = [(torch.from_numpy(cols).to(device), "vector"),
+             (flat[:10000], "vector"),          # n % 4 == 0
+             (flat[:9999], "vector"),           # a tail of 3
+             (flat[:1], "vector"),              # the tail alone
+             (flat[1:], "scalar"),              # idx at a 4-byte offset
+             (flat[3:], "scalar")]
+    g.reset_launch_counts()
+    for idx, route in cases:
+        assert g.take_route(idx, x) == route
+        out = g.take(idx, x)
+        ref = g.take_plain(idx, x)
+        assert out.dtype == dtype and out.shape == idx.shape
+        assert torch.equal(out.view(-1).view(torch.uint8),
+                           ref.view(-1).view(torch.uint8))
+    torch.cuda.synchronize()
+    assert g.launch_counts()["take"] == len(cases)
+
+
+def test_take_bool_equals_int32_round_trip(device):
+    """A bool field taken as bytes gives the old route's bits (convert
+    to int32, gather, compare with 0)."""
+    rs = np.random.RandomState(29)
+    x = torch.from_numpy(rs.rand(30000) < 0.3).to(device)
+    cols, _ = banded(rs, 30000, 5, 500)
+    idx = torch.from_numpy(cols).to(device)
+    assert torch.equal(g.take(idx, x), g.take(idx, x.to(torch.int32)) != 0)
+
+
+@pytest.mark.parametrize("nsources", [1, 2, 3, 4])
+def test_take_rows_many_routes_match_plain_version(device, nsources):
+    """K3 with 1 to 4 sources of mixed 4- and 8-byte words, bitwise its
+    plain version, on the vector route (n % 4 == 0), the scalar route
+    (n % 4 != 0, and an index view at a 4-byte offset), with -1
+    sentinels; ``take_rows`` is the same kernel with one source."""
+    rs = np.random.RandomState(31 + nsources)
+    nsrc = 30000
+    kinds = [(9, torch.int32), (9, torch.float64), (1, torch.int32),
+             (3, torch.float32)][:nsources]
+    sources = [words(rs, S * nsrc, dt, device).view(S, nsrc)
+               for S, dt in kinds]
+    flat = torch.from_numpy(rs.randint(-1, nsrc, 8193).astype(np.int32)
+                            ).to(device)
+    cases = [(flat[:8192], "vector"), (flat[:8191], "scalar"),
+             (flat[1:], "scalar"), (flat[1:8189], "scalar")]
+    g.reset_launch_counts()
+    for idx, route in cases:
+        assert g.take_rows_route(idx, sources) == route
+        outs = g.take_rows_many(idx, sources)
+        for out, xs, ref in zip(outs, sources,
+                                g.take_rows_many_plain(idx, sources)):
+            assert out.dtype == xs.dtype
+            assert out.shape == (xs.shape[0], idx.shape[0])
+            assert torch.equal(out, ref)
+        assert torch.equal(g.take_rows(idx, sources[0]), outs[0])
+    torch.cuda.synchronize()
+    assert g.launch_counts()["take_rows_many"] == len(cases)
+    assert g.launch_counts()["take_rows"] == len(cases)
 
 
 def old_route(dvals, lanes, cols, vals, x):
@@ -200,5 +287,7 @@ def test_main_path_on_card_matches_cpu(device, dtype):
     assert all(v == 0 for v in n_cpu.values())
     assert n_gpu.pop("take_sharded") == 0
     assert all(v > 0 for v in n_gpu.values())
+    # per pass: one partner fetch, one member fetch per member set
+    assert n_gpu["take_rows_many"] == 2 * n_gpu["take_rows"]
     assert r_gpu.status == 0 and r_gpu.relres < 1e-6
     assert abs(r_gpu.iterations - r_cpu.iterations) <= 1

@@ -123,11 +123,49 @@ class TestK2Take:
                                           out_pallas[~sentinel])
 
     def test_rejects_bool_and_int64_index(self):
+        # a bool field is a source K2 takes; a bool or int64 index, and a
+        # source of 2-byte words, are refused
         with pytest.raises(ValueError):
-            g.take(torch.zeros(4, dtype=torch.int32),
+            g.take(torch.zeros(4, dtype=torch.bool),
                    torch.zeros(4, dtype=torch.bool))
         with pytest.raises(ValueError):
             g.take(torch.zeros(4, dtype=torch.int64), torch.zeros(4))
+        with pytest.raises(ValueError):
+            g.take(torch.zeros(4, dtype=torch.int32),
+                   torch.zeros(4, dtype=torch.float16))
+
+    @pytest.mark.parametrize("dtype", [torch.bool, torch.uint8, torch.int8])
+    def test_one_byte_words_equal_int32_round_trip(self, dtype):
+        """A 1-byte source gathered as it is gives the bits of the old
+        route through int32 (convert, gather, convert back)."""
+        n = 3000
+        cols, _, _, _ = banded_ell_arrays(n, 5, band=100, seed=14)
+        rs = np.random.RandomState(15)
+        idx1 = rs.randint(-1, n, 2051).astype(np.int32)   # n % 4 != 0
+        x = torch.from_numpy(rs.randint(-128, 256, n)).to(dtype)
+        for idx in (torch.from_numpy(cols), torch.from_numpy(idx1)):
+            out = g.take(idx, x)
+            old = g.take(idx, x.to(torch.int32))
+            old = old != 0 if dtype == torch.bool else old.to(dtype)
+            assert out.dtype == dtype and out.shape == idx.shape
+            assert torch.equal(out, old)
+            assert torch.equal(out.view(torch.uint8), old.view(torch.uint8))
+
+    def test_bool_field_matches_pallas(self, interpret):
+        """The JAX package gathers a bool field as int32 through
+        ``windowed_take`` and compares with 0; K2 takes it as bytes."""
+        n, K = 5000, 5
+        cols, _, rownnz, valid = banded_ell_arrays(n, K, band=300, seed=16)
+        x = np.random.RandomState(17).rand(n) < 0.5
+        base_blk, wr, nsrc = gp.plan_windows(cols, rownnz, n,
+                                             include_identity=True)
+        out_pallas = np.asarray(gp.windowed_take(
+            jnp.asarray(cols), jnp.asarray(x.astype(np.int32)),
+            jnp.asarray(base_blk), wr, nsrc)) != 0
+        out = g.take(torch.from_numpy(cols), torch.from_numpy(x)).numpy()
+        assert out.dtype == np.bool_
+        np.testing.assert_array_equal(out[valid], out_pallas[valid])
+        np.testing.assert_array_equal(out, x[cols])
 
 
 class TestK3TakeRows:
@@ -158,6 +196,52 @@ class TestK3TakeRows:
         out = g.take_rows(torch.from_numpy(idx), torch.from_numpy(xs)).numpy()
         np.testing.assert_array_equal(out, xs[:, np.clip(idx, 0, 499)])
 
+    def test_many_equals_per_source_and_pallas(self, interpret):
+        """The Galerkin member fetch's sources in one call (relabelled
+        columns int32, values f64, row lengths int32, a fourth f32 field):
+        each output equals ``take_rows`` of its source and, for the 4-byte
+        sources the Pallas kernel takes, the interpreter's
+        ``windowed_take_rows``."""
+        nsrc, nc = 6000, 3000
+        rs = np.random.RandomState(18)
+        idx = np.clip(2 * np.arange(nc) + rs.randint(0, 2, nc), 0,
+                      nsrc - 1).astype(np.int32)
+        npad_c = ((nc + T - 1) // T) * T
+        idx = np.concatenate([idx, np.zeros(npad_c - nc, np.int32)])
+        sources = [rs.randint(-1, 2000, (9, nsrc)).astype(np.int32),
+                   rs.rand(9, nsrc),
+                   rs.randint(0, 10, (1, nsrc)).astype(np.int32),
+                   rs.rand(2, nsrc).astype(np.float32)]
+        ti = torch.from_numpy(idx)
+        outs = g.take_rows_many(ti, [torch.from_numpy(x) for x in sources])
+        base_blk, wr, nsrc_pad = gp.plan_windows(
+            idx[None, :], np.ones(npad_c, np.int32), nsrc)
+        assert len(outs) == len(sources)
+        for out, xs in zip(outs, sources):
+            assert out.dtype == torch.from_numpy(xs).dtype
+            assert torch.equal(out, g.take_rows(ti, torch.from_numpy(xs)))
+            np.testing.assert_array_equal(out.numpy(), xs[:, idx])
+            if xs.dtype.itemsize == 4:
+                np.testing.assert_array_equal(out.numpy(), np.asarray(
+                    gp.windowed_take_rows(jnp.asarray(idx), jnp.asarray(xs),
+                                          jnp.asarray(base_blk), wr,
+                                          nsrc_pad)))
+
+    def test_many_refuses_what_the_kernel_does_not_take(self):
+        idx = torch.zeros(8, dtype=torch.int32)
+        xs = torch.zeros(2, 16)
+        with pytest.raises(ValueError):          # five sources
+            g.take_rows_many(idx, [xs] * 5)
+        with pytest.raises(ValueError):          # no source
+            g.take_rows_many(idx, [])
+        with pytest.raises(ValueError):          # another nsrc
+            g.take_rows_many(idx, [xs, torch.zeros(2, 17)])
+        with pytest.raises(ValueError):          # 2-byte words
+            g.take_rows_many(idx, [xs, torch.zeros(2, 16,
+                                                   dtype=torch.float16)])
+        with pytest.raises(ValueError):          # 1-byte words
+            g.take_rows_many(idx, [torch.zeros(2, 16, dtype=torch.bool)])
+
 
 class TestRouting:
     def test_cpu_tensors_take_plain_version_and_count_nothing(self):
@@ -170,6 +254,11 @@ class TestRouting:
         assert torch.equal(g.take(tc, x), g.take_plain(tc, x))
         assert torch.equal(g.take_rows(tc[0], tv), g.take_rows_plain(tc[0],
                                                                      tv))
+        many = g.take_rows_many(tc[0], [tc, tv])
+        assert all(torch.equal(a, b) for a, b in
+                   zip(many, g.take_rows_many_plain(tc[0], [tc, tv])))
+        xb = x > 0.5
+        assert torch.equal(g.take(tc, xb), g.take_plain(tc, xb))
         lanes = g.pack_lanes((-1, 0, 1))
         dv = tv[:3].contiguous()
         xp = torch.from_numpy(np.random.RandomState(13).rand(tc.shape[1]))
@@ -177,4 +266,5 @@ class TestRouting:
                            g.hyb_spmv_plain(dv, lanes, tc, tv, xp))
         assert g.launch_counts() == {"gather_spmv": 0, "hyb_spmv": 0,
                                      "take": 0, "take_rows": 0,
+                                     "take_rows_many": 0,
                                      "take_sharded": 0}
