@@ -12,10 +12,12 @@ Phases, each printing a line:
    lanes (``gather_spmv``), K2 (take: 1-, 4- and 8-byte words, a bool
    field beside the int32 round trip it replaced), K3 (take rows: one
    source, and up to four in one launch beside the one-source launches
-   they replaced) and K4 (sharded take) against their plain PyTorch
+   they replaced) and K4 (sharded take: 1-, 4- and 8-byte words, a bool
+   field beside the int32 round trip it replaced; its halo fill beside
+   the list-indexed shifts it replaced) against their plain PyTorch
    versions on the card at the main path's shapes (K4 at the finest
-   sharded level of poisson1000 on four shards), every route of K2 and
-   K3 (vector, scalar tail, an index view at a 4-byte offset), with their
+   sharded level of poisson1000 on four shards), every route of K2, K3
+   and K4 (vector, scalar tail, an index view at a 4-byte offset), with their
    device times (CUDA events, median of 20 calls, L2 evicted before
    each), the time of one PyTorch library call computing the same
    function, and the least time the card's memory rate allows; then K2
@@ -43,12 +45,20 @@ Phases, each printing a line:
    exchange and K4) → ``build_hierarchy`` → ``shard_hierarchy`` (the two
    finest levels sharded) → ``solve_hierarchy``: the route of each
    sharded level, labels bitwise equal to the unsharded run's on every
-   level, the same iteration count, every kernel launched, and the phase
-   times beside the unsharded ones.
+   level, the same iteration count, every kernel launched (bool fields
+   through K4 as bytes; one halo fill and one ``hyb_spmv_sharded`` launch
+   per sharded-level SpMV), and the phase times beside the unsharded ones;
+7. sharded SpMV: ``hyb_spmv_sharded`` at the shapes of the sharded
+   levels 0 (pure DIA) and 1 (48 lanes, remainder on the index-list
+   exchange), bitwise against its plain version and the route it replaced
+   (ring halos, torch lane loop, K1 per shard), timed beside them, the
+   whole ``HaloOp.spmv``, cuSPARSE on the same operator and its bound.
 
 The last two lines are a JSON object with the per-kernel results (for
-``hyb_spmv`` also the old route's and the ``__ldg`` lanes' times, for
-``take_rows_many`` the time of one ``take_rows`` launch per source) and
+``hyb_spmv`` and ``hyb_spmv_sharded`` also the old route's time, for
+``hyb_spmv`` the ``__ldg`` lanes', for ``hyb_spmv_sharded`` the whole
+``HaloOp.spmv``'s, for ``take_rows_many`` the time of one ``take_rows``
+launch per source, for K2-K4 the scalar route's) and
 the launch floor, and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
 sum of its launches in the first unsharded f32 run and in the sharded
@@ -91,6 +101,10 @@ REPLACES = {
     "take_rows": "multigridsolver_tpu/ops/gather_pallas.py:359",
     "take_rows_many": "multigridsolver_tpu/ops/gather_pallas.py:359",
     "take_sharded": "multigridsolver_tpu/ops/gather_pallas.py:368",
+    # the two ppermutes of windowed_take_sharded: K4's halo exchange
+    "halo_fill": "multigridsolver_tpu/ops/gather_pallas.py:406",
+    # an XLA body in the JAX package (no Pallas kernel there)
+    "hyb_spmv_sharded": "multigridsolver_tpu/parallel/halo.py:135",
 }
 
 
@@ -366,7 +380,8 @@ def phase_kernels(device, problem) -> tuple[dict, float]:
                      " (idx at a 4-byte offset)")
 
     # K4: the finest sharded level of poisson1000 on four shards, its
-    # stored columns and a 1-D index with -1 sentinels, f32 and int32
+    # stored columns and a 1-D index with -1 sentinels, words of 4, 1 and
+    # 8 bytes, each on the vector and the scalar route; the halo fill
     a = shard_ell_halo(problem.to_ell(dtype=torch.float32, device=device),
                        RowMesh(NDEV, device))
     check(a is not None, "poisson1000 does not shard with a single-hop halo")
@@ -378,34 +393,94 @@ def phase_kernels(device, problem) -> tuple[dict, float]:
     xf = torch.from_numpy(rs.rand(n).astype(np.float32)).to(device)
     xi = torch.from_numpy(rs.randint(-2**31, 2**31 - 1, n, dtype=np.int64)
                           .astype(np.int32)).to(device)
-    for idx, x in [(a.cols, xf), (a.cols, xi), (idx1, xf), (idx1, xi)]:
-        halo = mesh.boundary_halo(x, h)
-        out = g.take_sharded(idx, x, halo, npr, h)
-        ref = g.take_sharded_plain(idx, x, halo, npr, h)
-        torch.cuda.synchronize()
-        check(torch.equal(out, ref), f"K4 idx {tuple(idx.shape)} x "
-              f"{x.dtype} is not bitwise equal to its plain version")
-        # the library yardstick: the halo concatenation, then one
-        # index_select at indices already rebased into it
-        ext = npr + 2 * h
-        rows = torch.arange(n, device=device) // npr
-        c = (idx.long() - (rows * npr - h)).clamp(0, ext - 1)
-        ext_idx = (rows * ext + c).reshape(-1)
-        xs = x.view(NDEV, npr)
-
-        def library():
-            return torch.cat([halo[:, 0], xs, halo[:, 1]], 1).view(-1) \
-                .index_select(0, ext_idx)
-        check(torch.equal(library().view(idx.shape), out),
-              "K4's library yardstick computes another function")
-        w = x.element_size()
-        record(res, "take_sharded", f"idx={tuple(idx.shape)} x={x.dtype} "
-               f"npr={npr} h={h}", 0.0,
-               lambda: g.take_sharded(idx, x, halo, npr, h),
-               lambda: g.take_sharded_plain(idx, x, halo, npr, h), library,
-               idx.numel() * (4 + w) + touched(ext_idx) * w)
+    xb = torch.from_numpy(rs.rand(n) < 0.5).to(device)
+    for idx, x in [(a.cols, xf), (a.cols, xb), (a.cols, xf.double()),
+                   (idx1, xi), (idx1, xb), (idx1, xf.double())]:
+        record_take_sharded(res, mesh, idx, x, npr, h)
+    record_halo_fill(res, mesh, xf, npr, h)
     phase_main_shapes(device, problem, res)
     return res, floor_ms
+
+
+def record_take_sharded(res, mesh, idx, x, npr: int, h: int) -> None:
+    """K4 on ``idx``/``x`` bitwise against its plain version on both
+    routes, timed beside its plain version, its library yardstick (the
+    halo concatenation, then one ``index_select`` at indices rebased into
+    it), its scalar route and, for a bool field, the int32 round trip it
+    replaced."""
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    ndev, n = mesh.ndev, idx.shape[-1]
+    halo = mesh.boundary_halo(x, h)
+    check_bits(halo, g.halo_fill_plain(x, ndev, h), f"halo_fill {x.dtype}")
+    route = g.take_sharded_route(idx, x, halo, npr, h)
+    check(route == "vector", f"K4 idx {tuple(idx.shape)} took route {route}")
+    out = g.take_sharded(idx, x, halo, npr, h)
+    check_bits(out, g.take_sharded_plain(idx, x, halo, npr, h),
+               f"K4 idx {tuple(idx.shape)} x {x.dtype}")
+    iu = unaligned(idx)
+    check(g.take_sharded_route(iu, x, halo, npr, h) == "scalar",
+          "K4 on an unaligned index did not take the scalar route")
+    check_bits(g.take_sharded(iu, x, halo, npr, h), out,
+               "K4's scalar and vector routes")
+    extra = {"scalar_ms": lambda: g.take_sharded(iu, x, halo, npr, h)}
+    if x.dtype == torch.bool:
+        def old():
+            xw = x.to(torch.int32)
+            return g.take_sharded(idx, xw, mesh.boundary_halo(xw, h), npr,
+                                  h) != 0
+        check(torch.equal(old(), out),
+              "K4 on a bool field differs from the int32 round trip")
+        extra["old_route_ms"] = old
+    ext = npr + 2 * h
+    rows = torch.arange(n, device=x.device) // npr
+    c = (idx.long() - (rows * npr - h)).clamp(0, ext - 1)
+    ext_idx = (rows * ext + c).reshape(-1)
+    xs = x.view(ndev, npr)
+
+    def library():
+        return torch.cat([halo[:, 0], xs, halo[:, 1]], 1).view(-1) \
+            .index_select(0, ext_idx)
+    check(torch.equal(library().view(idx.shape), out),
+          "K4's library yardstick computes another function")
+    w = x.element_size()
+    record(res, "take_sharded", f"idx={tuple(idx.shape)} x={x.dtype} "
+           f"npr={npr} h={h} route={route}", 0.0,
+           lambda: g.take_sharded(idx, x, halo, npr, h),
+           lambda: g.take_sharded_plain(idx, x, halo, npr, h), library,
+           idx.numel() * (4 + w) + touched(ext_idx) * w, extra=extra)
+
+
+def record_halo_fill(res, mesh, x, npr: int, h: int) -> None:
+    """The halo fill bitwise against its plain version, timed beside the
+    route it replaced (two non-cyclic shifts by list indexing, a stack);
+    no one library call fills it."""
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    ndev = mesh.ndev
+    xs = x.view(ndev, npr)
+
+    def old():
+        def shift(send, step):
+            pairs = [(s, s + step) for s in range(ndev)
+                     if 0 <= s + step < ndev]
+            recv = torch.zeros_like(send)
+            src, dst = zip(*pairs)
+            recv[list(dst)] = send[list(src)]
+            return recv
+        return torch.stack([shift(xs[:, npr - h:], 1), shift(xs[:, :h], -1)],
+                           1).contiguous()
+    halo = g.halo_fill(x, ndev, h)
+    check_bits(halo, g.halo_fill_plain(x, ndev, h), "halo_fill")
+    check_bits(halo, old(), "halo_fill against the route it replaced")
+    w = x.element_size()
+    record(res, "halo_fill", f"ndev={ndev} npr={npr} h={h} x={x.dtype}",
+           0.0, lambda: g.halo_fill(x, ndev, h),
+           lambda: g.halo_fill_plain(x, ndev, h), None,
+           (2 * (ndev - 1) + 2 * ndev) * h * w,
+           extra={"old_route_ms": old})
+
+
 
 
 def unaligned(idx):
@@ -828,15 +903,18 @@ def phase_sharded(device, a, unsharded) -> dict:
     mesh = RowMesh(NDEV, device)
     b = unsharded["b"]
     g.reset_launch_counts()
-    ell, t_ell = timed(lambda: a.to_ell(dtype=torch.float32, device=device))
-    setup, t_setup = timed(lambda: build_amg_setup_sharded(ell, cfg, mesh))
-    hier, t_hier = timed(lambda: build_hierarchy(
-        setup.matrices[0], setup.level_labels, setup.matrices[1:],
-        **BENCH_HIERARCHY))
-    hier_sh, t_shard = timed(lambda: shard_hierarchy(hier, mesh,
-                                                     shard_levels=2))
-    res, t_solve = timed(lambda: solve_hierarchy(
-        hier_sh, b, method="bicgstab", tol=1e-6, maxiter=200))
+    with g.launch_shapes() as shapes:
+        ell, t_ell = timed(lambda: a.to_ell(dtype=torch.float32,
+                                            device=device))
+        setup, t_setup = timed(lambda: build_amg_setup_sharded(ell, cfg,
+                                                               mesh))
+        hier, t_hier = timed(lambda: build_hierarchy(
+            setup.matrices[0], setup.level_labels, setup.matrices[1:],
+            **BENCH_HIERARCHY))
+        hier_sh, t_shard = timed(lambda: shard_hierarchy(hier, mesh,
+                                                         shard_levels=2))
+        res, t_solve = timed(lambda: solve_hierarchy(
+            hier_sh, b, method="bicgstab", tol=1e-6, maxiter=200))
     counts = g.launch_counts()
     times = dict(to_ell=t_ell, setup=t_setup, hierarchy=t_hier,
                  shard_hierarchy=t_shard, solve=t_solve)
@@ -867,11 +945,119 @@ def phase_sharded(device, a, unsharded) -> dict:
     for name, count in counts.items():
         check(count > 0, f"kernel {name} was not launched by the sharded "
               "path")
+    for key, c in sorted(shapes.items(), key=lambda kv: (kv[0][0], -kv[1])):
+        if key[0] in ("take_sharded", "halo_fill", "hyb_spmv_sharded"):
+            log(f"{tag} shape bucket: {key[0]} n={key[1]} S={key[2]} "
+                f"w={key[3]} launches={c}")
+    bool_k4 = sum(c for (name, _, _, w), c in shapes.items()
+                  if name == "take_sharded" and w == 1)
+    check(bool_k4 > 0, f"{tag}: no bool field went through K4 as bytes")
+    # one halo fill before each K4 gather and each sharded-level SpMV
+    # (both halo levels have lanes off the diagonal), and one launch per
+    # SpMV: the fills are the sum of the two
+    check(counts["halo_fill"] == counts["take_sharded"]
+          + counts["hyb_spmv_sharded"],
+          f"{tag}: {counts['halo_fill']} halo fills for "
+          f"{counts['take_sharded']} K4 gathers and "
+          f"{counts['hyb_spmv_sharded']} sharded SpMVs")
+    log(f"{tag}: bool fields through K4 as bytes: {bool_k4}; halo fills "
+        f"{counts['halo_fill']} = K4 {counts['take_sharded']} + sharded "
+        f"SpMV {counts['hyb_spmv_sharded']} (one launch per SpMV)")
     warm = unsharded["warm_times"]
     log("sharded vs unsharded f32 seconds (second unsharded run): "
         + " ".join(f"{k}={v:.4f}/{warm.get(k, 0.0):.4f}"
                    for k, v in times.items()))
-    return counts
+    return counts, hier_sh
+
+
+def old_sharded_route(op, x):
+    """``HaloOp.spmv`` as the card ran it before ``hyb_spmv_sharded``: the
+    ring halos, the torch lane loop over each shard's block, K1 on each
+    shard on ``cat([x_local, recv])`` (or the all-gathered x), then the
+    boundary corrections lane by lane."""
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.parallel import halo_width
+    from multigridsolver_tpu_torch.parallel.exchange import exchange_recv
+    mesh = op.mesh
+    ndev, w = mesh.ndev, halo_width(op.a)
+    xs = x.view(ndev, -1)
+    npr = xs.shape[1]
+    if w:
+        left = mesh.shift_ring(xs[:, npr - w:], 1)
+        right = mesh.shift_ring(xs[:, :w], -1)
+    if op.route == "exchange":
+        src = torch.cat([xs, exchange_recv(xs, op.ex_send_idx, mesh)],
+                        1) if op.ex_L else xs
+    elif op.route == "all_gather":
+        src = mesh.all_gather(xs).expand(ndev, -1)
+    dv = op.a.dvals.view(len(op.offsets), ndev, npr)
+    y = g.sharded_dia_interior_plain(dv, xs, op.offsets, w)
+    if op.route != "none":
+        y = y + torch.stack([g.gather_spmv(op.rest_cols[s], op.rest_vals[s],
+                                           src[s]) for s in range(ndev)])
+    if w:
+        y = g.sharded_dia_corrections_plain(y, dv, left, right, op.offsets)
+    return y.view(-1)
+
+
+def phase_sharded_spmv(device, hier_sh, unsharded, res) -> None:
+    """The sharded-level SpMV (``hyb_spmv_sharded``) at the shapes of the
+    sharded hierarchy's levels 0 and 1, bitwise against its plain version
+    and the route it replaced, timed beside them, the whole ``HaloOp.spmv``
+    (halo fill, exchange, launch), the same operator through cuSPARSE and
+    its bound (level 1 first: the JSON line's)."""
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.parallel import halo_width
+    from multigridsolver_tpu_torch.parallel.exchange import exchange_recv
+    rs = np.random.RandomState(2)
+    for lvl in (1, 0):
+        op = hier_sh.levels[lvl].a
+        mesh = op.mesh
+        ndev, w = mesh.ndev, halo_width(op.a)
+        x = torch.from_numpy(rs.rand(op.npad)).to(device, torch.float32)
+        halo = mesh.boundary_halo(x, w) if w else None
+        recv = exchange_recv(x.view(ndev, -1), op.ex_send_idx, mesh) \
+            if op.ex_L else None
+        args = (op.a.dvals, op.a.lanes, x, ndev)
+        kw = dict(halo=halo, cols=op.rest_cols, vals=op.rest_vals,
+                  recv=recv, route=op.route)
+        y = g.hyb_spmv_sharded(*args, **kw)
+        check_bits(y, g.hyb_spmv_sharded_plain(*args, **kw),
+                   f"hyb_spmv_sharded level {lvl}")
+        check_bits(y, old_sharded_route(op, x),
+                   f"hyb_spmv_sharded level {lvl} against the old route")
+        check_bits(op.spmv(x), y, f"HaloOp.spmv level {lvl}")
+        ell = unsharded["setup"].matrices[lvl]
+        csr = csr_of(ell.cols, ell.vals, ell.slot_mask(), x.shape[0])
+        check(torch.allclose(torch.mv(csr, x)[:ell.npad], y[:ell.npad],
+                             rtol=1e-4, atol=1e-4),
+              f"level {lvl}: the cuSPARSE yardstick computes another "
+              "function")
+        route = g.hyb_spmv_sharded_route(*args, **kw)
+        K = 0 if op.rest_cols is None else op.rest_cols.shape[1]
+        log(f"hyb_spmv_sharded level {lvl}: ndev={ndev} npr={op.npad // ndev}"
+            f" D={op.a.lanes.d} w={w} K={K} remainder={op.route} "
+            f"recv={0 if recv is None else recv.shape[1]} route={route} "
+            "bitwise_plain=True bitwise_old_route=True")
+        wb = x.element_size()
+        entries = int((op.a.dvals != 0).sum())
+        nbytes = (op.a.dvals.numel() + 2 * op.npad) * wb
+        for t in (halo, recv):
+            nbytes += 0 if t is None else t.numel() * wb
+        if K:
+            entries += int((op.rest_vals != 0).sum())
+            nbytes += op.rest_cols.numel() * (4 + wb)
+        record(res, "hyb_spmv_sharded",
+               f"level {lvl} f32 ndev={ndev} D={op.a.lanes.d} w={w} K={K} "
+               f"remainder={op.route} route={route}", 0.0,
+               lambda: g.hyb_spmv_sharded(*args, **kw),
+               lambda: g.hyb_spmv_sharded_plain(*args, **kw),
+               lambda: torch.mv(csr, x), nbytes, 2 * entries,
+               extra={"old_route_ms": lambda: old_sharded_route(op, x),
+                      "op_spmv_ms": lambda: op.spmv(x)})
 
 
 def main() -> int:
@@ -892,8 +1078,9 @@ def main() -> int:
         kres, floor_ms = phase_kernels(device, problem)
         unsharded = phase_main_path(device, problem)
         phase_hyb(device, unsharded, kres)
-        by_path = {"unsharded": unsharded["launches"],
-                   "sharded": phase_sharded(device, problem, unsharded)}
+        sharded, hier_sh = phase_sharded(device, problem, unsharded)
+        by_path = {"unsharded": unsharded["launches"], "sharded": sharded}
+        phase_sharded_spmv(device, hier_sh, unsharded, kres)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -906,7 +1093,7 @@ def main() -> int:
                     **{k: kres[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "old_route_ms", "ldg_ms",
-                        "scalar_ms")
+                        "scalar_ms", "op_spmv_ms")
                        if k in kres[name]})
                for name in REPLACES]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms}))

@@ -17,7 +17,12 @@
 //       replaces windowed_take_rows (_take_rows_kernel)
 //   K4  take_sharded out[k, i] = [lo | x_local | hi][clamp(idx - shift)]
 //       replaces windowed_take_sharded (the shard_map halo exchange
-//       followed by windowed_take on each shard's halo-extended source)
+//       followed by windowed_take on each shard's halo-extended source);
+//       halo_fill is the body of its exchange (the two ppermutes)
+//   K1 on a row mesh: hyb_spmv_sharded, a whole sharded-level SpMV
+//       (HaloOp / ExchangeELL of parallel/) in one launch for all shards
+//       replaces the XLA body of the JAX package's sharded SpMV
+//       (multigridsolver_tpu/parallel/halo.py:135, no Pallas there)
 //
 // The TPU kernels stage a window of the source vector in VMEM because the
 // TPU has no vector gather from HBM.  A GPU thread loads from any global
@@ -110,10 +115,50 @@
 // and rebases the global indices by shift = s * npr - h.  K4 reads the
 // three pieces in place instead: the exchanged halo buffer (ndev, 2, h)
 // and the shard's block of the source, so nothing is concatenated.  It is
-// bound by bytes like K2 (4 bytes of index, one word read, one written per
-// slot), and keeps K2's design: coalesced index and output accesses,
-// source and halo loads through __ldg.  On several cards the same kernel
-// takes a pointer to the local block instead of x + s * npr.
+// bound by bytes like K2, and takes K2's design: a thread moves 16 bytes
+// of consecutive output words (4 of 4 bytes, 2 of 8, 4 of 1 byte) from
+// one 16- or 8-byte index load, with 32-bit index math.  The grid is 3-D
+// (x along a shard's rows, y the shard, z the slot row), so the shard of
+// a word comes from its block and no element divides; npr is a multiple
+// of 4 on the vector route, so a word group never straddles two shards.
+// An idx off 16-byte alignment, or npr % 4 != 0, takes the scalar route
+// (one word a thread, the same grid).  halo_fill writes the halo buffer
+// from x in one launch (zero at the mesh ends); on several cards NCCL
+// fills it and K4 takes a pointer to the local block instead of
+// x + s * npr.
+//
+// hyb_spmv_sharded: K1 for a row-sharded operator, all shards in one
+// launch (blockIdx.y the shard, blockIdx.x its row blocks).  Shard s owns
+// rows [s * npr, (s + 1) * npr) of the DIA lanes dvals (D, npad) and its
+// ELL remainder as a block (K, npr) of cols/vals (ndev, K, npr):
+//
+//   INT[i]  = K1's DIA fold over the shard's own block of x, skipping
+//             every term whose column leaves it (the zero extension of
+//             the torch route: an accumulator from +0 never holds -0, so
+//             a skipped term and an added +-0 give the same bits)
+//   REM[i]  = the fold of the remainder's slots; a column c < npr reads
+//             the shard's own x[c], a larger one recv[s][c - npr] (the
+//             index-list exchange buffer, read in place, no concatenation),
+//             or, on the all-gather route, the global x[c]
+//   HEAD[i] = for rows i < w: the fold, from +0 in offsets order, of the
+//             lanes with i + o < 0, reading the left halo halo[s][0]
+//   TAIL[i] = for rows i >= npr - w: the lanes with i + o >= npr, reading
+//             the right halo halo[s][1]
+//   y[i]    = ((INT[i] + REM[i]) + HEAD[i]) + TAIL[i]
+//
+// with __fmul_rn / __fadd_rn throughout: the order and rounding of the
+// torch route it replaces (one multiply and one add kernel per lane, K1
+// per shard, the corrections lane by lane), bit for bit.  The interior
+// stages its x window in shared memory exactly as K1 does, clipped to the
+// shard's block; the rows per thread and the routes are K1's, with npr in
+// the place of npad (every sharded level pads npr to a multiple of 8).
+// HEAD and TAIL ride the same lane loop: a term that leaves the block goes
+// to its own accumulator, with the lane's dvals already in registers, and
+// the window holds the halo past the block's ends, so those terms read
+// shared memory too.  (Read from the halo in device memory, they put a
+// chain of dependent loads on the boundary blocks, which then ran long
+// after the rest and set the kernel's time.)  It is bound by bytes as K1
+// is.
 //
 // Plain C interface for ctypes: every entry returns cudaGetLastError()
 // after its launch and launches on the stream it is given.
@@ -200,28 +245,52 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                :: "r"(s), "l"(gmem));
 }
 
-// REM of R consecutive rows from i0: KU >= 0 slots known at compile time
-// (every index and value loaded before the gathers), KU < 0 a run-time K.
-template <typename T, int R, int KU>
+// the remainder's sources: x[clamp(c)] of nsrc words, from one vector
+// (K1) or read as [lo | hi], lo's first nlo words then hi's (the sharded
+// kernel: [x_local | recv[s]] on the exchange route)
+template <typename T>
+struct VecSource {
+  const T* x;
+  int nsrc;
+  __device__ __forceinline__ T operator()(int c) const {
+    return __ldg(x + clamp_index(c, nsrc));
+  }
+};
+
+template <typename T>
+struct SplitSource {
+  const T* lo;
+  const T* hi;
+  int nlo;
+  int nsrc;
+  __device__ __forceinline__ T operator()(int c) const {
+    c = clamp_index(c, nsrc);
+    return c < nlo ? __ldg(lo + c) : __ldg(hi + (c - nlo));
+  }
+};
+
+// REM of R consecutive rows from i0 (slot k of row i at k * ld + i): KU >=
+// 0 slots known at compile time (every index and value loaded before the
+// gathers), KU < 0 a run-time K.
+template <typename T, int R, int KU, typename Src>
 __device__ __forceinline__ void remainder_fold(const int* __restrict__ cols,
                                                const T* __restrict__ vals,
-                                               const T* __restrict__ x,
-                                               int K, int npad, int nsrc,
-                                               int i0, T (&rem)[R]) {
+                                               const Src& x,
+                                               int K, int ld, int i0,
+                                               T (&rem)[R]) {
   if constexpr (KU > 0) {
     int c[KU][R];
     T v[KU][R];
 #pragma unroll
     for (int k = 0; k < KU; ++k) {
-      load(cols + static_cast<int64_t>(k) * npad + i0, c[k]);
-      load(vals + static_cast<int64_t>(k) * npad + i0, v[k]);
+      load(cols + static_cast<int64_t>(k) * ld + i0, c[k]);
+      load(vals + static_cast<int64_t>(k) * ld + i0, v[k]);
     }
 #pragma unroll
     for (int k = 0; k < KU; ++k) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const T xv = __ldg(x + clamp_index(c[k][r], nsrc));
-        rem[r] = add_rn(rem[r], mul_rn(v[k][r], xv));
+        rem[r] = add_rn(rem[r], mul_rn(v[k][r], x(c[k][r])));
       }
     }
   } else if constexpr (KU < 0) {
@@ -229,39 +298,101 @@ __device__ __forceinline__ void remainder_fold(const int* __restrict__ cols,
     for (int k = 0; k < K; ++k) {
       int c[R];
       T v[R];
-      load(cols + static_cast<int64_t>(k) * npad + i0, c);
-      load(vals + static_cast<int64_t>(k) * npad + i0, v);
+      load(cols + static_cast<int64_t>(k) * ld + i0, c);
+      load(vals + static_cast<int64_t>(k) * ld + i0, v);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        rem[r] = add_rn(rem[r],
-                        mul_rn(v[r], __ldg(x + clamp_index(c[r], nsrc))));
+        rem[r] = add_rn(rem[r], mul_rn(v[r], x(c[r])));
       }
     }
   }
 }
 
-// DIA of R consecutive rows from i0, lane by lane in offsets order; x[j]
-// from the shared window (xw[j - ws]) or through __ldg.
-template <typename T, int R, bool kWindow>
+// the halo of a sharded DIA fold: a column j < 0 reads left[w + j], one
+// j >= n reads right[j - n] (|j| and j - n within w)
+template <typename T>
+struct Halo {
+  const T* left;
+  const T* right;
+  int w;
+};
+
+// DIA of R consecutive rows from i0 over x[0, n), lane by lane in offsets
+// order (lane d of row i at d * ld + i), x[j] from the shared window
+// (xw[j - ws]) or through __ldg.  A term whose column leaves [0, n) is
+// skipped (kHalo false) or folded into head (j < 0) or tail (j >= n)
+// (kHalo true), each in offsets order like acc: its x from the window,
+// which holds the halo there, or else from the halo through __ldg.
+template <typename T, int R, bool kWindow, bool kHalo>
 __device__ __forceinline__ void dia_fold(const T* __restrict__ dvals,
                                          const int* s_off, int D,
                                          const T* __restrict__ x,
-                                         const T* xw, int ws, int npad,
-                                         int i0, T (&acc)[R]) {
+                                         const T* xw, int ws, int n, int ld,
+                                         int i0, T (&acc)[R],
+                                         const Halo<T>& halo, T (&head)[R],
+                                         T (&tail)[R]) {
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
     const int o = s_off[d];
     T dv[R];
-    load(dvals + static_cast<int64_t>(d) * npad + i0, dv);
+    load(dvals + static_cast<int64_t>(d) * ld + i0, dv);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int j = i0 + r + o;
-      if (static_cast<unsigned>(j) < static_cast<unsigned>(npad)) {
+      if (static_cast<unsigned>(j) < static_cast<unsigned>(n)) {
         const T xv = kWindow ? xw[j - ws] : __ldg(x + j);
         acc[r] = add_rn(acc[r], mul_rn(dv[r], xv));
+      } else if constexpr (kHalo) {
+        const T xv = kWindow ? xw[j - ws]
+            : (j < 0 ? __ldg(halo.left + (halo.w + j))
+                     : __ldg(halo.right + (j - n)));
+        if (j < 0) {
+          head[r] = add_rn(head[r], mul_rn(dv[r], xv));
+        } else {
+          tail[r] = add_rn(tail[r], mul_rn(dv[r], xv));
+        }
       }
     }
   }
+}
+
+// Issue the copy of the x window of the block whose rows start at
+// block_row: x[ws, block_row + kThreads * R + omax) in 16-byte chunks, ws
+// the window's start aligned down to a chunk; chunks that leave [0, n)
+// are filled word by word, from the halo where it reaches (kHalo) and
+// with 0 beyond.  Returns ws; the caller waits (cp.async.wait_all) and
+// syncs before reading xw.
+template <typename T, int R, bool kHalo>
+__device__ __forceinline__ int stage_window(T* xw, const T* __restrict__ x,
+                                            int n, int block_row,
+                                            const HybLanes& lanes,
+                                            const Halo<T>& halo) {
+  constexpr int V = 16 / sizeof(T);
+  const int lo = block_row + lanes.omin;
+  const int ws = (lo >= 0 ? lo / V : -((V - 1 - lo) / V)) * V;
+  const int words = block_row + kThreads * R + lanes.omax - ws;
+  for (int c = threadIdx.x * V; c < words; c += kThreads * V) {
+    const int g = ws + c;
+    if (g >= 0 && g + V <= n) {
+      cp_async16(xw + c, x + g);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int gj = g + j;
+        T v = T(0);
+        if (gj >= 0 && gj < n) {
+          v = x[gj];
+        } else if (kHalo && gj < 0 && gj >= -halo.w) {
+          v = halo.left[halo.w + gj];
+        } else if (kHalo && gj >= n && gj < n + halo.w) {
+          v = halo.right[gj - n];
+        }
+        xw[c + j] = v;
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  return ws;
 }
 
 // K1: a block of kThreads * R rows, R rows per thread.  window != 0 only
@@ -280,28 +411,9 @@ hyb_spmv_kernel(const T* __restrict__ dvals,
   const int block_row = blockIdx.x * (kThreads * R);
   const int i0 = block_row + threadIdx.x * R;
   if (threadIdx.x < D) s_off[threadIdx.x] = lanes.off[threadIdx.x];
-  int ws = 0;
-  if (window) {
-    // x[ws, block_row + kThreads * R + omax) in 16-byte chunks, ws the
-    // window's start aligned down to a chunk; chunks that leave
-    // [0, npad) are filled word by word, with 0 outside it
-    constexpr int V = 16 / sizeof(T);
-    const int lo = block_row + lanes.omin;
-    ws = (lo >= 0 ? lo / V : -((V - 1 - lo) / V)) * V;
-    const int words = block_row + kThreads * R + lanes.omax - ws;
-    for (int c = threadIdx.x * V; c < words; c += kThreads * V) {
-      const int g = ws + c;
-      if (g >= 0 && g + V <= npad) {
-        cp_async16(xw + c, x + g);
-      } else {
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          xw[c + j] = (g + j >= 0 && g + j < npad) ? x[g + j] : T(0);
-        }
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  }
+  const Halo<T> none{nullptr, nullptr, 0};
+  const int ws = window
+      ? stage_window<T, R, false>(xw, x, npad, block_row, lanes, none) : 0;
   // rows past npad only help fill the window: npad is a multiple of R,
   // so a row group lies wholly inside or wholly outside
   const bool active = i0 < npad;
@@ -310,7 +422,8 @@ hyb_spmv_kernel(const T* __restrict__ dvals,
   for (int r = 0; r < R; ++r) rem[r] = T(0);
   // the remainder does not read the window: it runs while the copy lands
   if (active) {
-    remainder_fold<T, R, KU>(cols, vals, x, K, npad, nsrc, i0, rem);
+    remainder_fold<T, R, KU>(cols, vals, VecSource<T>{x, nsrc}, K, npad,
+                             i0, rem);
   }
   if (window) asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -319,13 +432,82 @@ hyb_spmv_kernel(const T* __restrict__ dvals,
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = T(0);
   if (window) {
-    dia_fold<T, R, true>(dvals, s_off, D, x, xw, ws, npad, i0, acc);
+    dia_fold<T, R, true, false>(dvals, s_off, D, x, xw, ws, npad, npad, i0,
+                                acc, none, acc, acc);
   } else {
-    dia_fold<T, R, false>(dvals, s_off, D, x, xw, ws, npad, i0, acc);
+    dia_fold<T, R, false, false>(dvals, s_off, D, x, xw, ws, npad, npad, i0,
+                                 acc, none, acc, acc);
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = add_rn(acc[r], rem[r]);
   store(y + i0, acc);
+}
+
+// K1 on a row mesh (hyb_spmv_sharded): blockIdx.y is the shard s, whose
+// rows are [s * npr, (s + 1) * npr) of dvals (D, npad) and y, and whose
+// remainder is the block s of cols/vals (ndev, K, npr).  The remainder
+// reads [x_local | recv[s]] (exchange: nrecv words a shard) or, with
+// global != 0, the whole x.  halo (ndev, 2, w) holds each shard's left
+// and right neighbour slabs (w = 0: no corrections).  window as K1's.
+template <typename T, int R, int KU>
+__global__ void __launch_bounds__(kThreads)
+hyb_spmv_sharded_kernel(const T* __restrict__ dvals,
+                        const __grid_constant__ HybLanes lanes,
+                        const int* __restrict__ cols,
+                        const T* __restrict__ vals,
+                        const T* __restrict__ x, const T* __restrict__ recv,
+                        const T* __restrict__ halo, T* __restrict__ y,
+                        int K, int npr, int npad, int nrecv, int global,
+                        int w, int window) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xw = reinterpret_cast<T*>(smem);
+  __shared__ int s_off[kMaxLanes];
+  const int D = lanes.d;
+  const int s = blockIdx.y;
+  const int base = s * npr;
+  const T* xs = x + base;
+  const int block_row = blockIdx.x * (kThreads * R);
+  const int i0 = block_row + threadIdx.x * R;
+  if (threadIdx.x < D) s_off[threadIdx.x] = lanes.off[threadIdx.x];
+  const T* left = halo + static_cast<int64_t>(2 * s) * w;
+  const Halo<T> hl{left, left + w, w};
+  const int ws = window
+      ? stage_window<T, R, true>(xw, xs, npr, block_row, lanes, hl) : 0;
+  const bool active = i0 < npr;
+  T rem[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) rem[r] = T(0);
+  if (active && K > 0) {
+    const int64_t blk = static_cast<int64_t>(s) * K * npr;
+    // the whole x is [x | x] split past its end
+    const SplitSource<T> src = global
+        ? SplitSource<T>{x, x, npad, npad}
+        : SplitSource<T>{xs, recv + static_cast<int64_t>(s) * nrecv, npr,
+                         npr + nrecv};
+    remainder_fold<T, R, KU>(cols + blk, vals + blk, src, K, npr, i0, rem);
+  }
+  if (window) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  if (!active) return;
+  const T* dv = dvals + base;
+  T acc[R], head[R], tail[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = head[r] = tail[r] = T(0);
+  if (window) {
+    dia_fold<T, R, true, true>(dv, s_off, D, xs, xw, ws, npr, npad, i0, acc,
+                               hl, head, tail);
+  } else {
+    dia_fold<T, R, false, true>(dv, s_off, D, xs, xw, ws, npr, npad, i0, acc,
+                                hl, head, tail);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r;
+    acc[r] = add_rn(acc[r], rem[r]);
+    if (i < w) acc[r] = add_rn(acc[r], head[r]);
+    if (i >= npr - w) acc[r] = add_rn(acc[r], tail[r]);
+  }
+  store(y + base + i0, acc);
 }
 
 // ------------------------------------------------------------- K2, K3
@@ -446,42 +628,78 @@ take_rows_kernel(const int* __restrict__ idx,
 // an empty kernel: the floor of a launch as time_ms reads it
 __global__ void empty_kernel() {}
 
-// K4: one thread per slot over the flattened (K, npad) or (npad,) index
-// array, npad = ndev * npr; slot j belongs to row i = j % npad of shard
-// s = i / npr.  halo is (ndev, 2, h): [s][0] the left neighbour's last h
-// words, [s][1] the right neighbour's first h words.
+// K4's source word at c, the index rebased to the shard's covered range
+// [lo | x_local | hi] and clamped into it: idx - shift in 32 bits,
+// unsigned past the clamp at 0 so that no index overflows
 template <typename W>
-__global__ void take_sharded_kernel(const int* __restrict__ idx,
-                                    const W* __restrict__ x,
-                                    const W* __restrict__ halo,
-                                    W* __restrict__ out,
-                                    int64_t n, int npad, int npr, int h) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t last = static_cast<int64_t>(npr) + 2 * h - 1;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < n; j += stride) {
-    const int s = static_cast<int>(j % npad) / npr;
-    const int64_t shift = static_cast<int64_t>(s) * npr - h;
-    int64_t c = static_cast<int64_t>(idx[j]) - shift;
-    c = c < 0 ? 0 : (c > last ? last : c);
-    W v;
-    if (c < h) {
-      v = __ldg(halo + (2 * static_cast<int64_t>(s)) * h + c);
-    } else if (c < h + npr) {
-      v = __ldg(x + shift + c);
-    } else {
-      v = __ldg(halo + (2 * static_cast<int64_t>(s) + 1) * h + (c - h - npr));
-    }
-    out[j] = v;
-  }
+__device__ __forceinline__ W sharded_word(int c, int shift, int h, int npr,
+                                          const W* __restrict__ xs,
+                                          const W* __restrict__ lo,
+                                          const W* __restrict__ hi) {
+  const unsigned last = static_cast<unsigned>(npr + 2 * h - 1);
+  unsigned u = c < shift ? 0u
+      : static_cast<unsigned>(c) - static_cast<unsigned>(shift);
+  u = u > last ? last : u;
+  const int r = static_cast<int>(u);
+  if (r < h) return __ldg(lo + r);
+  if (r < h + npr) return __ldg(xs + (r - h));
+  return __ldg(hi + (r - h - npr));
 }
 
-int grid_for(int64_t n) {
-  // grid-stride kernels: enough blocks to fill 132 SMs many times over,
-  // capped so the launch stays within the 1-D grid limit
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 64;
-  return static_cast<int>(blocks < cap ? blocks : cap);
+// K4: blockIdx.z is the slot row k (0 for a 1-D idx), blockIdx.y the shard
+// s, blockIdx.x * kThreads + threadIdx.x the thread's word group along the
+// shard's npr rows.  Slot (k, s * npr + t) lies at k * npad + s * npr + t
+// of idx and out.  halo is (ndev, 2, h): [s][0] the left neighbour's last
+// h words, [s][1] the right neighbour's first h words.  On the vector route
+// (kVec: npr % 4 == 0, idx and out 16-byte aligned) a thread moves
+// VecWords<W>::V words, else one.
+template <typename W, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+take_sharded_kernel(const int* __restrict__ idx, const W* __restrict__ x,
+                    const W* __restrict__ halo, W* __restrict__ out,
+                    int npad, int npr, int h) {
+  constexpr int V = kVec ? VecWords<W>::V : 1;
+  const int t = (blockIdx.x * kThreads + threadIdx.x) * V;
+  if (t >= npr) return;
+  const int s = blockIdx.y;
+  const int j0 = blockIdx.z * npad + s * npr + t;
+  const int shift = s * npr - h;
+  const W* xs = x + s * npr;
+  const W* lo = halo + 2 * s * h;
+  const W* hi = lo + h;
+  int c[V];
+  if constexpr (V == 4) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(idx + j0));
+    c[0] = q.x; c[1] = q.y; c[2] = q.z; c[3] = q.w;
+  } else if constexpr (V == 2) {
+    const int2 q = __ldg(reinterpret_cast<const int2*>(idx + j0));
+    c[0] = q.x; c[1] = q.y;
+  } else {
+    c[0] = __ldg(idx + j0);
+  }
+  W v[V];
+#pragma unroll
+  for (int r = 0; r < V; ++r) {
+    v[r] = sharded_word(c[r], shift, h, npr, xs, lo, hi);
+  }
+  store_words(out + j0, v);
+}
+
+// halo_fill: halo[s][0] = x[s * npr - h, s * npr) (0 for s = 0) and
+// halo[s][1] = x[(s + 1) * npr, (s + 1) * npr + h) (0 for the last
+// shard), one word a thread; blockIdx.y = 2 s + side
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+halo_fill_kernel(const W* __restrict__ x, W* __restrict__ halo, int ndev,
+                 int npr, int h) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= h) return;
+  const int s = blockIdx.y >> 1;
+  const bool right = blockIdx.y & 1;
+  W v = W(0);
+  if (!right && s > 0) v = x[s * npr - h + j];
+  if (right && s + 1 < ndev) v = x[(s + 1) * npr + j];
+  halo[blockIdx.y * h + j] = v;
 }
 
 // K1's routes: which instance a call takes
@@ -634,14 +852,98 @@ int launch_take_rows(const void* idx, const RowSources* srcs, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4's routes (TakeRoute); out as the wrapper allocates it when null
+int take_sharded_route(const void* idx, const void* out, int npr) {
+  return npr % 4 == 0 && aligned16(idx) && aligned16(out) ? kTakeVector
+                                                          : kTakeScalar;
+}
+
 template <typename W>
 int launch_take_sharded(const void* idx, const void* x, const void* halo,
-                        void* out, int64_t n, int npad, int npr, int h,
+                        void* out, int K, int ndev, int npr, int h,
                         void* stream) {
-  take_sharded_kernel<W><<<grid_for(n), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const W*>(x),
-      static_cast<const W*>(halo), static_cast<W*>(out), n, npad, npr, h);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ip = static_cast<const int*>(idx);
+  const W* xp = static_cast<const W*>(x);
+  const W* hp = static_cast<const W*>(halo);
+  W* op = static_cast<W*>(out);
+  if (take_sharded_route(idx, out, npr) == kTakeVector) {
+    constexpr int V = VecWords<W>::V;
+    const dim3 grid((npr / V + kThreads - 1) / kThreads, ndev, K);
+    take_sharded_kernel<W, true><<<grid, kThreads, 0, s>>>(
+        ip, xp, hp, op, ndev * npr, npr, h);
+  } else {
+    const dim3 grid((npr + kThreads - 1) / kThreads, ndev, K);
+    take_sharded_kernel<W, false><<<grid, kThreads, 0, s>>>(
+        ip, xp, hp, op, ndev * npr, npr, h);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename W>
+int launch_halo_fill(const void* x, void* halo, int ndev, int npr, int h,
+                     void* stream) {
+  const dim3 grid((h + kThreads - 1) / kThreads, 2 * ndev);
+  halo_fill_kernel<W><<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const W*>(x), static_cast<W*>(halo), ndev, npr, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+using HybShardedKernel = void (*)(const T*, const HybLanes, const int*,
+                                  const T*, const T*, const T*, const T*, T*,
+                                  int, int, int, int, int, int, int);
+
+template <typename T, int R>
+HybShardedKernel<T> hyb_sharded_kernel_for(int K) {
+#define MGS_HYB_SLOTS(KK) \
+  case KK:                \
+    return hyb_spmv_sharded_kernel<T, R, KK>;
+  switch (K) {
+    MGS_HYB_SLOTS(0) MGS_HYB_SLOTS(1) MGS_HYB_SLOTS(2) MGS_HYB_SLOTS(3)
+    MGS_HYB_SLOTS(4) MGS_HYB_SLOTS(5) MGS_HYB_SLOTS(6) MGS_HYB_SLOTS(7)
+    MGS_HYB_SLOTS(8) MGS_HYB_SLOTS(9) MGS_HYB_SLOTS(10) MGS_HYB_SLOTS(11)
+    MGS_HYB_SLOTS(12) MGS_HYB_SLOTS(13) MGS_HYB_SLOTS(14) MGS_HYB_SLOTS(15)
+    MGS_HYB_SLOTS(16)
+    default:
+      return hyb_spmv_sharded_kernel<T, R, -1>;
+  }
+#undef MGS_HYB_SLOTS
+}
+
+// the sharded SpMV takes K1's routes, decided per shard (npr rows)
+template <typename T>
+int launch_hyb_sharded(const void* dvals, const HybLanes* lanes,
+                       const void* cols, const void* vals, const void* x,
+                       const void* recv, const void* halo, void* y, int K,
+                       int ndev, int npr, int nrecv, int global, int w,
+                       int window_bytes, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* dv = static_cast<const T*>(dvals);
+  const int* c = static_cast<const int*>(cols);
+  const T* v = static_cast<const T*>(vals);
+  const T* xs = static_cast<const T*>(x);
+  const T* rv = static_cast<const T*>(recv);
+  const T* hp = static_cast<const T*>(halo);
+  T* ys = static_cast<T*>(y);
+  const int npad = ndev * npr;
+  const int route = hyb_route<T>(dvals, *lanes, cols, vals, x, y, K, npr,
+                                 window_bytes);
+  if (route == kScalarRoute) {
+    const dim3 grid((npr + kThreads - 1) / kThreads, ndev);
+    hyb_spmv_sharded_kernel<T, 1, -1><<<grid, kThreads, 0, s>>>(
+        dv, *lanes, c, v, xs, rv, hp, ys, K, npr, npad, nrecv, global, w, 0);
+  } else {
+    constexpr int R = RowGroup<T>::R;
+    const dim3 grid((npr / R + kThreads - 1) / kThreads, ndev);
+    const size_t smem = route == kWindowRoute
+        ? static_cast<size_t>(hyb_window_words<T>(*lanes)) * sizeof(T) : 0;
+    const HybShardedKernel<T> kernel = hyb_sharded_kernel_for<T, R>(K);
+    kernel<<<grid, kThreads, smem, s>>>(dv, *lanes, c, v, xs, rv, hp, ys, K,
+                                        npr, npad, nrecv, global, w,
+                                        route == kWindowRoute);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -715,18 +1017,68 @@ int mgs_empty(void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int mgs_take_sharded_w4(const void* idx, const void* x, const void* halo,
-                        void* out, long long n, int npad, int npr, int h,
+int mgs_take_sharded_w1(const void* idx, const void* x, const void* halo,
+                        void* out, int K, int ndev, int npr, int h,
                         void* stream) {
-  return launch_take_sharded<uint32_t>(idx, x, halo, out, n, npad, npr, h,
+  return launch_take_sharded<unsigned char>(idx, x, halo, out, K, ndev, npr,
+                                            h, stream);
+}
+
+int mgs_take_sharded_w4(const void* idx, const void* x, const void* halo,
+                        void* out, int K, int ndev, int npr, int h,
+                        void* stream) {
+  return launch_take_sharded<uint32_t>(idx, x, halo, out, K, ndev, npr, h,
                                        stream);
 }
 
 int mgs_take_sharded_w8(const void* idx, const void* x, const void* halo,
-                        void* out, long long n, int npad, int npr, int h,
+                        void* out, int K, int ndev, int npr, int h,
                         void* stream) {
-  return launch_take_sharded<unsigned long long>(idx, x, halo, out, n, npad,
+  return launch_take_sharded<unsigned long long>(idx, x, halo, out, K, ndev,
                                                  npr, h, stream);
+}
+
+// the route a K4 call with this idx takes (TakeRoute); out as the wrapper
+// allocates it, 16-byte aligned
+int mgs_take_sharded_route(const void* idx, int npr) {
+  return take_sharded_route(idx, nullptr, npr);
+}
+
+int mgs_halo_fill_w1(const void* x, void* halo, int ndev, int npr, int h,
+                     void* stream) {
+  return launch_halo_fill<unsigned char>(x, halo, ndev, npr, h, stream);
+}
+
+int mgs_halo_fill_w4(const void* x, void* halo, int ndev, int npr, int h,
+                     void* stream) {
+  return launch_halo_fill<uint32_t>(x, halo, ndev, npr, h, stream);
+}
+
+int mgs_halo_fill_w8(const void* x, void* halo, int ndev, int npr, int h,
+                     void* stream) {
+  return launch_halo_fill<unsigned long long>(x, halo, ndev, npr, h, stream);
+}
+
+int mgs_hyb_spmv_sharded_f32(const void* dvals, const HybLanes* lanes,
+                             const void* cols, const void* vals,
+                             const void* x, const void* recv,
+                             const void* halo, void* y, int K, int ndev,
+                             int npr, int nrecv, int global, int w,
+                             int window_bytes, void* stream) {
+  return launch_hyb_sharded<float>(dvals, lanes, cols, vals, x, recv, halo,
+                                   y, K, ndev, npr, nrecv, global, w,
+                                   window_bytes, stream);
+}
+
+int mgs_hyb_spmv_sharded_f64(const void* dvals, const HybLanes* lanes,
+                             const void* cols, const void* vals,
+                             const void* x, const void* recv,
+                             const void* halo, void* y, int K, int ndev,
+                             int npr, int nrecv, int global, int w,
+                             int window_bytes, void* stream) {
+  return launch_hyb_sharded<double>(dvals, lanes, cols, vals, x, recv, halo,
+                                    y, K, ndev, npr, nrecv, global, w,
+                                    window_bytes, stream);
 }
 
 }  // extern "C"

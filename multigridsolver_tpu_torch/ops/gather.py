@@ -20,8 +20,15 @@ the AGMG main path and its row-sharded variant:
   Replaces ``windowed_take_rows``.
 * **K4** :func:`take_sharded` — K2 on a row mesh: each shard gathers from
   its own rows and an exchanged halo of ``h`` rows on either side; every
-  finest-level neighbour gather of the sharded setup.  Replaces
-  ``windowed_take_sharded``.
+  finest-level neighbour gather of the sharded setup (bool fields as
+  bytes).  :func:`halo_fill` fills that halo in one launch.  Replaces
+  ``windowed_take_sharded`` (its ppermutes and its gather).
+* **K1 on a row mesh** :func:`hyb_spmv_sharded` — a whole sharded-level
+  SpMV (``parallel.HaloOp``, ``parallel.ExchangeELL``) in one launch for
+  all shards: each shard's DIA lanes over its own block, its remainder
+  from ``[x_local | recv]`` read in place (or the whole x), and the
+  boundary corrections from the halo.  Replaces the XLA body of the JAX
+  package's sharded SpMV (``multigridsolver_tpu/parallel/halo.py``).
 
 Each wrapper takes its plain PyTorch version when its tensors lie on the
 CPU and launches its kernel when they lie on a CUDA device; anything the
@@ -157,9 +164,23 @@ def load_library() -> ctypes.CDLL:
             lib.mgs_take_rows_route.restype = i
             lib.mgs_empty.argtypes = [p]
             lib.mgs_empty.restype = i
-            for name in ("mgs_take_sharded_w4", "mgs_take_sharded_w8"):
+            for name in ("mgs_take_sharded_w1", "mgs_take_sharded_w4",
+                         "mgs_take_sharded_w8"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, p]
+                fn.argtypes = [p, p, p, p, i, i, i, i, p]
+                fn.restype = i
+            lib.mgs_take_sharded_route.argtypes = [p, i]
+            lib.mgs_take_sharded_route.restype = i
+            for name in ("mgs_halo_fill_w1", "mgs_halo_fill_w4",
+                         "mgs_halo_fill_w8"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, p, i, i, i, p]
+                fn.restype = i
+            for name in ("mgs_hyb_spmv_sharded_f32",
+                         "mgs_hyb_spmv_sharded_f64"):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, lanes, p, p, p, p, p, p, i, i, i, i, i, i,
+                               i, p]
                 fn.restype = i
             _lib = lib
     return _lib
@@ -572,6 +593,57 @@ def take_rows_route(idx: torch.Tensor, sources) -> str:
 
 # --------------------------------------------------------------------- K4
 
+# K4's, halo_fill's and hyb_spmv_sharded's grids take the shards (and K4's
+# the slot rows) on their y and z axes
+MAX_GRID_YZ = 65535
+
+
+def halo_fill_plain(x: torch.Tensor, ndev: int, h: int) -> torch.Tensor:
+    """Plain version of :func:`halo_fill`: the two non-cyclic shifts of
+    the boundary slabs, zeros at the mesh ends."""
+    xs = x.view(ndev, -1)
+    halo = x.new_zeros((ndev, 2, h))
+    if h:
+        halo[1:, 0] = xs[:-1, xs.shape[1] - h:]
+        halo[:-1, 1] = xs[1:, :h]
+    return halo
+
+
+def halo_fill(x: torch.Tensor, ndev: int, h: int) -> torch.Tensor:
+    """The halo K4 and :func:`hyb_spmv_sharded` read: ``(ndev, 2, h)``
+    with ``[s, 0]`` the last ``h`` words of shard ``s − 1`` and ``[s, 1]``
+    the first ``h`` of shard ``s + 1`` (zeros at the mesh ends), for ``x``
+    split into ``ndev`` shards of ``npr ≥ h`` words of 1, 4 or 8 bytes.
+    One launch on the card (the body of the two ppermutes of
+    ``windowed_take_sharded``)."""
+    _require(x.dim() == 1 and ndev >= 1 and x.shape[0] % ndev == 0,
+             f"x must split into {ndev} shards, got {tuple(x.shape)}")
+    npr = x.shape[0] // ndev
+    _require(0 <= h <= npr, f"halo width {h} must lie in [0, {npr}]")
+    _check_words(x, (1, 4, 8))
+    if not _on_cuda(x):
+        return halo_fill_plain(x, ndev, h)
+    _require(x.is_contiguous(), "halo_fill needs a contiguous x")
+    _require(2 * ndev <= MAX_GRID_YZ, f"{ndev} shards exceed halo_fill's "
+             "grid")
+    _int_max(x.shape[0])
+    halo = torch.empty((ndev, 2, h), dtype=x.dtype, device=x.device)
+    if h == 0:
+        return halo
+    lib = load_library()
+    fn = {1: lib.mgs_halo_fill_w1, 4: lib.mgs_halo_fill_w4,
+          8: lib.mgs_halo_fill_w8}[x.element_size()]
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), halo.data_ptr(), ndev, npr, h, _stream(x))
+    _check(rc, "halo_fill")
+    halo_fill.launches += 1
+    _log_shape("halo_fill", npr, ndev, x.element_size())
+    return halo
+
+
+halo_fill.launches = 0
+
+
 def take_sharded_plain(idx: torch.Tensor, x: torch.Tensor, halo: torch.Tensor,
                        npr: int, h: int) -> torch.Tensor:
     """Plain version of K4: per shard, ``take_plain`` of the rebased
@@ -584,18 +656,7 @@ def take_sharded_plain(idx: torch.Tensor, x: torch.Tensor, halo: torch.Tensor,
     return torch.cat(outs, -1)
 
 
-def take_sharded(idx: torch.Tensor, x: torch.Tensor, halo: torch.Tensor,
-                 npr: int, h: int) -> torch.Tensor:
-    """K4: the neighbour gather of a row-sharded operator.
-
-    The rows (the last axis of ``idx``, ``ndev * npr`` long) are split into
-    ``ndev`` shards of ``npr``; shard ``s`` reads ``x`` at global indices in
-    ``[s·npr − h, (s+1)·npr + h)``, its own block of ``x`` directly and the
-    ``h`` rows on either side from ``halo`` ``(ndev, 2, h)`` (the
-    neighbours' boundary slabs, zero at the mesh ends).  Indices outside
-    that range are clamped into it (junk the callers mask).  ``idx`` is
-    int32 ``(K, ndev·npr)`` or ``(ndev·npr,)``; ``x`` ``(ndev·npr,)`` and
-    ``halo`` hold one dtype of 4- or 8-byte words."""
+def _check_take_sharded(idx, x, halo, npr, h) -> None:
     _require(idx.dtype == torch.int32, f"idx must be int32, got {idx.dtype}")
     ndev = halo.shape[0]
     _require(halo.dim() == 3 and halo.shape[1:] == (2, h) and 0 <= h <= npr,
@@ -609,35 +670,283 @@ def take_sharded(idx: torch.Tensor, x: torch.Tensor, halo: torch.Tensor,
              f"{tuple(idx.shape)}")
     _require(halo.dtype == x.dtype, f"halo {halo.dtype} and x {x.dtype} "
              "must share one dtype")
-    _check_words(x, (4, 8))
+    _check_words(x, (1, 4, 8))
+
+
+def take_sharded(idx: torch.Tensor, x: torch.Tensor, halo: torch.Tensor,
+                 npr: int, h: int) -> torch.Tensor:
+    """K4: the neighbour gather of a row-sharded operator.
+
+    The rows (the last axis of ``idx``, ``ndev * npr`` long) are split into
+    ``ndev`` shards of ``npr``; shard ``s`` reads ``x`` at global indices in
+    ``[s·npr − h, (s+1)·npr + h)``, its own block of ``x`` directly and the
+    ``h`` rows on either side from ``halo`` ``(ndev, 2, h)`` (the
+    neighbours' boundary slabs, zero at the mesh ends: :func:`halo_fill`).
+    Indices outside that range are clamped into it (junk the callers
+    mask).  ``idx`` is int32 ``(K, ndev·npr)`` or ``(ndev·npr,)``; ``x``
+    ``(ndev·npr,)`` and ``halo`` hold one dtype of 1-, 4- or 8-byte words
+    (a bool field is gathered as its bytes)."""
+    _check_take_sharded(idx, x, halo, npr, h)
     if not _on_cuda(idx, x, halo):
         return take_sharded_plain(idx, x, halo, npr, h)
     _require(idx.is_contiguous() and x.is_contiguous()
              and halo.is_contiguous(), "K4 needs contiguous tensors")
+    ndev = halo.shape[0]
     _int_max(ndev * npr + 2 * h)
+    _int_max(idx.numel())
     out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
     n = idx.numel()
     if n == 0:
         return out
+    K = n // idx.shape[-1]
+    _require(K <= MAX_GRID_YZ and ndev <= MAX_GRID_YZ,
+             f"K4 takes at most {MAX_GRID_YZ} slot rows and shards, got "
+             f"{K} and {ndev}")
     lib = load_library()
-    fn = lib.mgs_take_sharded_w4 if x.element_size() == 4 \
-        else lib.mgs_take_sharded_w8
+    fn = {1: lib.mgs_take_sharded_w1, 4: lib.mgs_take_sharded_w4,
+          8: lib.mgs_take_sharded_w8}[x.element_size()]
     with torch.cuda.device(x.device):
         rc = fn(idx.data_ptr(), x.data_ptr(), halo.data_ptr(),
-                out.data_ptr(), n, ndev * npr, npr, h, _stream(x))
+                out.data_ptr(), K, ndev, npr, h, _stream(x))
     _check(rc, "take_sharded")
     take_sharded.launches += 1
-    _log_shape("take_sharded", idx.shape[-1], n // idx.shape[-1],
-               x.element_size())
+    _log_shape("take_sharded", idx.shape[-1], K, x.element_size())
     return out
 
 
 take_sharded.launches = 0
 
 
+def take_sharded_route(idx: torch.Tensor, x: torch.Tensor,
+                       halo: torch.Tensor, npr: int, h: int) -> str:
+    """Which instance :func:`take_sharded` launches for these CUDA
+    tensors: ``"vector"`` (16 bytes of output a thread, as K2; ``npr % 4 ==
+    0`` and ``idx`` 16-byte aligned) or ``"scalar"`` (one word a
+    thread)."""
+    _check_take_sharded(idx, x, halo, npr, h)
+    return TAKE_ROUTES[load_library().mgs_take_sharded_route(idx.data_ptr(),
+                                                             npr)]
+
+
+# ------------------------------------------------------ K1 on a row mesh
+
+SHARDED_ROUTES = ("none", "exchange", "all_gather")
+
+
+def sharded_dia_interior_plain(dvals: torch.Tensor, xs: torch.Tensor,
+                               offsets, w: int) -> torch.Tensor:
+    """The DIA lanes of every shard over its own block only (zeros beyond
+    its ends), a multiply and an add per lane in offsets order.
+    ``dvals`` ``(D, ndev, npr)``, ``xs`` ``(ndev, npr)``; ``w`` ≥ every
+    ``|o|``."""
+    npr = xs.shape[1]
+    xz = torch.nn.functional.pad(xs, (w, w)) if w else xs
+    y = torch.zeros_like(xs)
+    for d, o in enumerate(offsets):
+        y = y + dvals[d] * xz[:, w + o:w + o + npr]
+    return y
+
+
+def sharded_dia_corrections_plain(y: torch.Tensor, dvals: torch.Tensor,
+                                  left: torch.Tensor, right: torch.Tensor,
+                                  offsets) -> torch.Tensor:
+    """Add the boundary terms the interior left out: rows i < w fold the
+    lanes with i + o < 0 from the left halo, rows i ≥ npr − w the lanes
+    with i + o ≥ npr from the right halo (``left``/``right`` ``(ndev,
+    w)``), each fold from +0 in offsets order; the head is added before
+    the tail."""
+    npr, w = y.shape[1], left.shape[1]
+    iw = torch.arange(w, device=y.device)
+    head = torch.zeros_like(left)
+    tail = torch.zeros_like(right)
+    for d, o in enumerate(offsets):
+        if o < 0:
+            # local row i (< w) wants x_local[i + o]; i + o < 0 → left
+            idx = (w + iw + o).clamp(0, w - 1)
+            head = head + torch.where(iw + o < 0,
+                                      dvals[d][:, :w] * left[:, idx], 0.0)
+        elif o > 0:
+            # local row i = npr - w + j wants x_local[i + o];
+            # i + o ≥ npr ⇔ j + o ≥ w → right[j + o - w]
+            idx = (iw + o - w).clamp(0, w - 1)
+            tail = tail + torch.where(
+                iw + o >= w, dvals[d][:, npr - w:] * right[:, idx], 0.0)
+    y = y.clone()
+    y[:, :w] += head
+    y[:, npr - w:] += tail
+    return y
+
+
+def hyb_spmv_sharded_plain(dvals: torch.Tensor | None, lanes: HybLanes,
+                           x: torch.Tensor, ndev: int,
+                           halo: torch.Tensor | None = None,
+                           cols: torch.Tensor | None = None,
+                           vals: torch.Tensor | None = None,
+                           recv: torch.Tensor | None = None,
+                           route: str = "none") -> torch.Tensor:
+    """Plain version of :func:`hyb_spmv_sharded`: the interior, then the
+    remainder of every shard (:func:`gather_spmv_plain` on
+    ``[x_local | recv[s]]`` or on the whole x) and one add, then the
+    boundary corrections."""
+    npr = x.shape[0] // ndev
+    xs = x.view(ndev, npr)
+    w = 0 if halo is None else halo.shape[2]
+    dv = None if dvals is None else dvals.view(lanes.d, ndev, npr)
+    y = sharded_dia_interior_plain(dv, xs, lanes.offsets, w)
+    if route != "none":
+        if route == "all_gather":
+            src = x.expand(ndev, -1)
+        else:
+            src = xs if recv is None else torch.cat([xs, recv], 1)
+        y = y + torch.stack([gather_spmv_plain(cols[s], vals[s], src[s])
+                             for s in range(ndev)])
+    if w:
+        y = sharded_dia_corrections_plain(y, dv, halo[:, 0], halo[:, 1],
+                                          lanes.offsets)
+    return y.view(-1)
+
+
+def _check_hyb_sharded(dvals, lanes, x, ndev, halo, cols, vals, recv,
+                       route) -> None:
+    """:func:`hyb_spmv_sharded`'s argument checks (formatted only on
+    failure: this runs once per sharded-level SpMV)."""
+    if route not in SHARDED_ROUTES:
+        raise ValueError(f"route must be one of {SHARDED_ROUTES}, got "
+                         f"{route!r}")
+    if not (x.dim() == 1 and ndev >= 1 and x.shape[0] % ndev == 0
+            and x.shape[0] > 0):
+        raise ValueError(f"x must split into {ndev} non-empty shards, got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"x must be float32 or float64, got {x.dtype}")
+    npad = x.shape[0]
+    npr = npad // ndev
+    if not isinstance(lanes, HybLanes):
+        raise ValueError("lanes must be a HybLanes")
+    if lanes.d == 0:
+        if dvals is not None and dvals.shape[0] != 0:
+            raise ValueError("dvals must be None or (0, npad) without lanes")
+    elif not (dvals is not None and dvals.dim() == 2
+              and dvals.shape == (lanes.d, npad) and dvals.dtype == x.dtype):
+        got = None if dvals is None else (dvals.dtype, tuple(dvals.shape))
+        raise ValueError(f"dvals must be ({lanes.d}, {npad}) of x's "
+                         f"{x.dtype}, got {got}")
+    w = 0 if halo is None else halo.shape[-1]
+    if halo is not None and not (halo.dim() == 3
+                                 and halo.shape[:2] == (ndev, 2)
+                                 and halo.dtype == x.dtype):
+        raise ValueError(f"halo must be ({ndev}, 2, w) of x's {x.dtype}, got "
+                         f"{halo.dtype} {tuple(halo.shape)}")
+    if lanes.d and not (max(-lanes.omin, lanes.omax) <= w <= npr):
+        raise ValueError(f"the halo width {w} must cover the offsets "
+                         f"[{lanes.omin}, {lanes.omax}] and fit a shard of "
+                         f"{npr}")
+    if (route == "none") != (cols is None) or (cols is None) != (vals is None):
+        raise ValueError(f"route {route!r}: cols and vals must be given "
+                         "exactly when the route has a remainder")
+    if cols is not None:
+        if not (cols.dim() == 3 and cols.shape[0] == ndev
+                and cols.shape[2] == npr and vals.shape == cols.shape):
+            raise ValueError(f"cols/vals must be equal ({ndev}, K, {npr}), "
+                             f"got {tuple(cols.shape)} and "
+                             f"{tuple(vals.shape)}")
+        if cols.dtype != torch.int32 or vals.dtype != x.dtype:
+            raise ValueError(f"cols must be int32 and vals {x.dtype}, got "
+                             f"{cols.dtype} and {vals.dtype}")
+    if recv is not None and not (route == "exchange" and recv.dim() == 2
+                                 and recv.shape[0] == ndev
+                                 and recv.dtype == x.dtype):
+        raise ValueError(f"recv must be ({ndev}, n) of x's {x.dtype} on the "
+                         f"exchange route, got {recv.dtype} "
+                         f"{tuple(recv.shape)} on {route!r}")
+
+
+def hyb_spmv_sharded(dvals: torch.Tensor | None, lanes: HybLanes,
+                     x: torch.Tensor, ndev: int,
+                     halo: torch.Tensor | None = None,
+                     cols: torch.Tensor | None = None,
+                     vals: torch.Tensor | None = None,
+                     recv: torch.Tensor | None = None,
+                     route: str = "none") -> torch.Tensor:
+    """K1 on a row mesh: ``y = A @ x`` for a row-sharded operator, every
+    shard in one launch.
+
+    ``x`` ``(ndev·npr,)``; shard ``s`` owns rows ``[s·npr, (s+1)·npr)``.
+    ``dvals`` ``(D, ndev·npr)`` holds the DIA lanes of ``lanes`` (None
+    without lanes); each shard folds them over its own block of x, and the
+    terms that leave it come back from ``halo`` ``(ndev, 2, w)``
+    (:func:`halo_fill`, ``w`` ≥ every ``|o|``; None when every offset is
+    0) as boundary corrections.  ``cols``/``vals`` ``(ndev, K, npr)`` hold
+    each shard's ELL remainder: on the ``"exchange"`` route its columns
+    address ``[x_local | recv[s]]`` (``recv`` ``(ndev, n)`` from the
+    index-list exchange, or None), on ``"all_gather"`` the whole x; route
+    ``"none"`` has no remainder.  ``y = ((interior + remainder) + head) +
+    tail`` per row, as :func:`hyb_spmv_sharded_plain` computes it, bit for
+    bit (see ``gather.cu``)."""
+    _check_hyb_sharded(dvals, lanes, x, ndev, halo, cols, vals, recv, route)
+    ts = [t for t in (dvals, x, halo, cols, vals, recv) if t is not None]
+    if not _on_cuda(*ts):
+        return hyb_spmv_sharded_plain(dvals, lanes, x, ndev, halo, cols,
+                                      vals, recv, route)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("hyb_spmv_sharded needs contiguous tensors")
+    npad = x.shape[0]
+    npr = npad // ndev
+    K = 0 if cols is None else cols.shape[1]
+    nrecv = 0 if recv is None else recv.shape[1]
+    w = 0 if halo is None else halo.shape[2]
+    _int_max(max(K, lanes.d, 2) * npad)
+    _int_max(ndev * (npr + nrecv))
+    if ndev > MAX_GRID_YZ:
+        raise ValueError(f"{ndev} shards exceed the kernel's grid")
+    y = torch.empty((npad,), dtype=x.dtype, device=x.device)
+    lib = load_library()
+    fn = lib.mgs_hyb_spmv_sharded_f32 if x.dtype == torch.float32 \
+        else lib.mgs_hyb_spmv_sharded_f64
+    with torch.cuda.device(x.device):
+        rc = fn(None if lanes.d == 0 else dvals.data_ptr(), lanes,
+                None if K == 0 else cols.data_ptr(),
+                None if K == 0 else vals.data_ptr(), x.data_ptr(),
+                None if nrecv == 0 else recv.data_ptr(),
+                None if w == 0 else halo.data_ptr(), y.data_ptr(), K, ndev,
+                npr, nrecv, int(route == "all_gather"), w, WINDOW_BYTES,
+                _stream(x))
+    _check(rc, "hyb_spmv_sharded")
+    hyb_spmv_sharded.launches += 1
+    if _shapes is not None:
+        _log_shape("hyb_spmv_sharded", npr, (lanes.d, K, ndev, w),
+                   x.element_size())
+    return y
+
+
+hyb_spmv_sharded.launches = 0
+
+
+def hyb_spmv_sharded_route(dvals: torch.Tensor | None, lanes: HybLanes,
+                           x: torch.Tensor, ndev: int,
+                           halo: torch.Tensor | None = None,
+                           cols: torch.Tensor | None = None,
+                           vals: torch.Tensor | None = None,
+                           recv: torch.Tensor | None = None,
+                           route: str = "none") -> str:
+    """Which instance :func:`hyb_spmv_sharded` launches for these CUDA
+    tensors: K1's routes (``"window"``, ``"vector"``, ``"scalar"``),
+    decided on one shard's ``npr`` rows."""
+    _check_hyb_sharded(dvals, lanes, x, ndev, halo, cols, vals, recv, route)
+    K = 0 if cols is None else cols.shape[1]
+    lib = load_library()
+    fn = lib.mgs_hyb_route_f32 if x.dtype == torch.float32 \
+        else lib.mgs_hyb_route_f64
+    return HYB_ROUTES[fn(None if lanes.d == 0 else dvals.data_ptr(), lanes,
+                         None if K == 0 else cols.data_ptr(),
+                         None if K == 0 else vals.data_ptr(), x.data_ptr(),
+                         K, x.shape[0] // ndev, WINDOW_BYTES)]
+
+
 KERNELS = {"gather_spmv": gather_spmv, "hyb_spmv": hyb_spmv, "take": take,
            "take_rows": take_rows, "take_rows_many": take_rows_many,
-           "take_sharded": take_sharded}
+           "take_sharded": take_sharded, "halo_fill": halo_fill,
+           "hyb_spmv_sharded": hyb_spmv_sharded}
 
 
 def reset_launch_counts() -> None:

@@ -11,7 +11,8 @@ owned by s that t's rows reference.  The lists are padded to one length
 L, so the whole exchange is one ``all_to_all`` of an ``(ndev, ndev, L)``
 block, and the operator's columns are rewritten once, on the host, to
 address each shard's ``[x_local | recv]``.  Per SpMV each shard then
-moves ndev·L entries instead of n, and runs K1 on its own rows.
+moves ndev·L entries instead of n, and one ``hyb_spmv_sharded`` launch
+runs every shard's rows, reading ``x_local`` and ``recv`` in place.
 
 When a shard pair shares no columns its list is empty; when every pair is
 empty, no exchange runs at all.  When the lists approach the all-gather's
@@ -121,15 +122,6 @@ def exchange_recv(xs: torch.Tensor, send_idx: torch.Tensor,
     return mesh.all_to_all(sv).view(ndev, -1)
 
 
-def spmv_per_shard(cols: torch.Tensor, vals: torch.Tensor,
-                   src: torch.Tensor) -> torch.Tensor:
-    """K1 on every shard: ``cols``/``vals`` ``(ndev, K, npr)`` blocks,
-    ``src[s]`` the vector shard ``s`` gathers from.  Returns
-    ``(ndev, npr)``."""
-    return torch.stack([gather.gather_spmv(cols[s], vals[s], src[s])
-                        for s in range(cols.shape[0])])
-
-
 @dataclass
 class ExchangeELL:
     """A row-sharded ELL operator whose SpMV moves only the off-shard x
@@ -157,11 +149,13 @@ class ExchangeELL:
         return self.cols.shape[1]
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        xs = x.view(self.mesh.ndev, -1)
-        if self.L > 0:
-            xs = torch.cat([xs, exchange_recv(xs, self.send_idx, self.mesh)],
-                           1)
-        return spmv_per_shard(self.cols, self.vals, xs).view(-1)
+        ndev = self.mesh.ndev
+        x = x.contiguous()
+        recv = exchange_recv(x.view(ndev, -1), self.send_idx,
+                             self.mesh) if self.L > 0 else None
+        return gather.hyb_spmv_sharded(None, gather.NO_LANES, x, ndev,
+                                       cols=self.cols, vals=self.vals,
+                                       recv=recv, route="exchange")
 
 
 def exchange_ell(ell, mesh: RowMesh) -> ExchangeELL | None:

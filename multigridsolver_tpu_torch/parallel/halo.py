@@ -2,20 +2,22 @@
 
 For banded operators (the DIA part of the HYB format: stencil problems)
 each shard needs only a halo of width W = max|offset| from each
-neighbouring shard, not the whole of x: per SpMV each shard ppermutes its
-W boundary entries to its neighbours (2W entries instead of n).  The
-interior multiply reads a zero-extended copy of the local block only, so
-it does not wait on the exchange; the halo values enter through O(W)
-boundary corrections added afterwards.
+neighbouring shard, not the whole of x: per SpMV each shard sends its W
+boundary entries to its neighbours (2W entries instead of n).  The
+interior multiply reads the shard's own block only, so it does not wait on
+the exchange; the halo values enter through O(W) boundary corrections
+added afterwards.
 
 The ELL remainder (irregular entries; coarse levels) rides the index-list
 exchange of ``exchange.py`` — one ``all_to_all`` of exactly the off-shard
-x entries it references — or the all-gather when no plan could be built,
-and runs K1 on each shard.
+x entries it references — or the all-gather when no plan could be built.
 
-The ring exchange is cyclic: the halos that wrap around the mesh ends
-carry values from the far end, but the dval lanes are 0 wherever i + o
-leaves [0, n), so they never count.
+Per SpMV: the halo fill (``RowMesh.boundary_halo``), the index-list
+exchange where the plan has one, then one ``hyb_spmv_sharded`` launch for
+every shard's interior, remainder and corrections.  The halo is the
+non-cyclic one K4 reads (zeros at the mesh ends); the JAX package's ring
+exchange carries the far end's values there instead, but the dval lanes
+are 0 wherever i + o leaves [0, n), so the two give the same bits.
 """
 from __future__ import annotations
 
@@ -23,9 +25,9 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops import gather
 from ..sparse.hybrid import HYB
-from .exchange import (build_exchange_plan, exchange_recv, shard_blocks,
-                       spmv_per_shard)
+from .exchange import build_exchange_plan, exchange_recv, shard_blocks
 from .sharded import RowMesh, _round_up
 
 
@@ -33,46 +35,6 @@ def halo_width(a: HYB, multiple: int = 8) -> int:
     if not a.offsets:
         return 0
     return _round_up(max(abs(o) for o in a.offsets), multiple)
-
-
-def _dia_interior(dvals: torch.Tensor, xs: torch.Tensor, offsets, w: int,
-                  n_local: int) -> torch.Tensor:
-    """Band multiply of every shard using only its local block (zeros
-    beyond its ends); no dependence on any exchange.  ``dvals``
-    ``(D, ndev, n_local)``, ``xs`` ``(ndev, n_local)``."""
-    xz = torch.nn.functional.pad(xs, (w, w)) if w else xs
-    y = torch.zeros_like(xs)
-    for d, o in enumerate(offsets):
-        y = y + dvals[d] * xz[:, w + o:w + o + n_local]
-    return y
-
-
-def _dia_corrections(y: torch.Tensor, dvals: torch.Tensor,
-                     left: torch.Tensor, right: torch.Tensor, offsets,
-                     w: int, n_local: int) -> torch.Tensor:
-    """Add the boundary terms the interior multiply zeroed out: rows
-    i < -o read x[i+o] from the left halo, rows i ≥ n_local - o from the
-    right halo.  O(W·D) work — tiny next to the interior.  ``left`` and
-    ``right`` are ``(ndev, w)``."""
-    iw = torch.arange(w, device=y.device)
-    head = torch.zeros_like(left)
-    tail = torch.zeros_like(right)
-    for d, o in enumerate(offsets):
-        if o < 0:
-            # local row i (< w) wants x_local[i + o]; i + o < 0 → left
-            idx = (w + iw + o).clamp(0, w - 1)
-            head = head + torch.where(iw + o < 0,
-                                      dvals[d][:, :w] * left[:, idx], 0.0)
-        elif o > 0:
-            # local row i = n_local - w + j wants x_local[i + o];
-            # i + o ≥ n_local ⇔ j + o ≥ w → right[j + o - w]
-            idx = (iw + o - w).clamp(0, w - 1)
-            tail = tail + torch.where(
-                iw + o >= w, dvals[d][:, n_local - w:] * right[:, idx], 0.0)
-    y = y.clone()
-    y[:, :w] += head
-    y[:, n_local - w:] += tail
-    return y
 
 
 @dataclass
@@ -113,28 +75,14 @@ class HaloOp:
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         a, mesh = self.a, self.mesh
-        ndev = mesh.ndev
-        n_local = a.npad // ndev
         w = halo_width(a)
-        xs = x.view(ndev, n_local)
-        # exchanges first: the interior multiply depends on neither
-        if w > 0:
-            left = mesh.shift_ring(xs[:, n_local - w:], 1)
-            right = mesh.shift_ring(xs[:, :w], -1)
-        route = self.route
-        if route == "exchange":
-            src = torch.cat([xs, exchange_recv(xs, self.ex_send_idx, mesh)],
-                            1) if self.ex_L else xs
-        elif route == "all_gather":
-            src = mesh.all_gather(xs).expand(ndev, -1)
-        dvals = a.dvals.view(len(a.offsets), ndev, n_local)
-        y = _dia_interior(dvals, xs, a.offsets, w, n_local)
-        if route != "none":
-            y = y + spmv_per_shard(self.rest_cols, self.rest_vals, src)
-        if w > 0:
-            y = _dia_corrections(y, dvals, left, right, a.offsets, w,
-                                 n_local)
-        return y.view(-1)
+        x = x.contiguous()
+        halo = mesh.boundary_halo(x, w) if w else None
+        recv = exchange_recv(x.view(mesh.ndev, -1), self.ex_send_idx,
+                             mesh) if self.ex_L else None
+        return gather.hyb_spmv_sharded(
+            a.dvals, a.lanes, x, mesh.ndev, halo=halo, cols=self.rest_cols,
+            vals=self.rest_vals, recv=recv, route=self.route)
 
 
 def make_halo_op(a: HYB, mesh: RowMesh) -> HaloOp:

@@ -4,8 +4,8 @@ The scaling axis is matrix-row partitioning: a level of ``npad`` rows is
 split into ``ndev`` shards of ``npr = npad / ndev`` consecutive rows, and
 level vectors are split the same way.  :class:`RowMesh` is the
 counterpart of the JAX package's one-axis ``Mesh``: it names the shards
-and owns the collectives the sharded path uses (ppermutes of boundary
-slabs, ``all_to_all``, ``all_gather``).
+and owns the collectives the sharded path uses (non-cyclic shifts of
+boundary slabs into a halo, ``all_to_all``, ``all_gather``).
 
 All shards of a mesh lie on one device, as the JAX package's
 single-process mesh of virtual CPU devices does: a sharded array is the
@@ -24,6 +24,7 @@ import dataclasses
 
 import torch
 
+from ..ops import gather
 from ..setup import transfers as tf
 from ..solve.hierarchy import Hierarchy
 from ..sparse.formats import ELL
@@ -55,21 +56,19 @@ class RowMesh:
     def __repr__(self) -> str:
         return f"RowMesh(ndev={self.ndev}, device={str(self.device)!r})"
 
-    def ppermute(self, send: torch.Tensor,
-                 perm: list[tuple[int, int]]) -> torch.Tensor:
-        """``recv[t] = send[s]`` for every pair ``(s, t)`` of ``perm``;
-        shards that no pair sends to receive zeros (``lax.ppermute``)."""
-        recv = torch.zeros_like(send)
-        if perm:
-            src, dst = zip(*perm)
-            recv[list(dst)] = send[list(src)]
-        return recv
-
     def shift_open(self, send: torch.Tensor, step: int) -> torch.Tensor:
-        """Non-cyclic ppermute ``s → s + step``: the shards at the mesh end
-        that nothing reaches receive zeros."""
-        return self.ppermute(send, [(s, s + step) for s in range(self.ndev)
-                                    if 0 <= s + step < self.ndev])
+        """Non-cyclic ppermute ``s → s + step`` (``recv[s + step] =
+        send[s]``): the shards at the mesh end that nothing reaches receive
+        zeros."""
+        recv = torch.zeros_like(send)
+        if step == 0:
+            recv.copy_(send)
+        elif abs(step) < self.ndev:
+            if step > 0:
+                recv[step:] = send[:-step]
+            else:
+                recv[:step] = send[-step:]
+        return recv
 
     def shift_ring(self, send: torch.Tensor, step: int) -> torch.Tensor:
         """Cyclic ppermute ``s → (s + step) mod ndev``."""
@@ -88,11 +87,10 @@ class RowMesh:
     def boundary_halo(self, x: torch.Tensor, h: int) -> torch.Tensor:
         """``(ndev, 2, h)``: for each shard, the last ``h`` entries of its
         left neighbour and the first ``h`` of its right neighbour, zero at
-        the mesh ends (the non-cyclic exchange of
-        ``windowed_take_sharded``)."""
-        xs = x.view(self.ndev, -1)
-        return torch.stack([self.shift_open(xs[:, xs.shape[1] - h:], 1),
-                            self.shift_open(xs[:, :h], -1)], 1).contiguous()
+        the mesh ends (the two non-cyclic shifts of
+        ``windowed_take_sharded``), as K4 and ``hyb_spmv_sharded`` read it:
+        one ``halo_fill`` launch on the card."""
+        return gather.halo_fill(x, self.ndev, h)
 
 
 def make_row_mesh(n_devices: int, device: torch.device | str = "cuda"

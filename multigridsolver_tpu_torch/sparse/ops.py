@@ -29,18 +29,17 @@ def take_neighbor(a: ELL, x: torch.Tensor,
     Entries at invalid slots (slot ≥ rownnz[i], padding rows) and at
     out-of-range indices are unspecified: every consumer masks them.
     ``x``: (m,) of 4- or 8-byte words (float32/float64/int32/int64) or
-    bool; on a sharded ELL m = npad.  K2 gathers a bool field as its
-    bytes; K4 takes it as int32.
+    bool; on a sharded ELL m = npad.  K2 and K4 gather a bool field as
+    its bytes.
     """
     if idx is None:
         idx = a.cols
     if a.shard is None:
         return gather.take(idx.contiguous(), x.contiguous())
     mesh, npr, h = a.shard
-    xw = x.to(torch.int32) if x.dtype == torch.bool else x.contiguous()
-    out = gather.take_sharded(idx.contiguous(), xw,
-                              mesh.boundary_halo(xw, h), npr, h)
-    return out != 0 if x.dtype == torch.bool else out
+    x = x.contiguous()
+    return gather.take_sharded(idx.contiguous(), x, mesh.boundary_halo(x, h),
+                               npr, h)
 
 
 def take_member_rows(members: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -61,12 +60,12 @@ def take_member_rows_many(members: torch.Tensor, sources) -> list:
 
 def spmv(a, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for an ELL (K1), a DIA+ELL hybrid (K1's ``hyb_spmv``,
-    lanes and remainder in one launch), or a row-sharded
-    operator bound to its mesh (``parallel.HaloOp``/``ExchangeELL``: halo
-    and index-list exchanges, K1 per shard).  ``x``: the padded column
-    vector; invalid slots hold val 0, so no masking is needed.  A sharded
-    ELL's ``x`` is the whole vector here, on one device, so its SpMV is
-    the plain K1 one."""
+    lanes and remainder in one launch), or a row-sharded operator bound to
+    its mesh (``parallel.HaloOp``/``ExchangeELL``: halo and index-list
+    exchanges, then one ``hyb_spmv_sharded`` launch).  ``x``: the padded
+    column vector; invalid slots hold val 0, so no masking is needed.  A
+    sharded ELL's ``x`` is the whole vector here, on one device, so its
+    SpMV is the plain K1 one."""
     if hasattr(a, "mesh"):
         return a.spmv(x)
     if hasattr(a, "offsets"):

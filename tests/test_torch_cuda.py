@@ -64,7 +64,8 @@ def test_kernels_match_plain_versions(device, dtype):
     torch.cuda.synchronize()
     assert g.launch_counts() == {"gather_spmv": 1, "hyb_spmv": 0, "take": 2,
                                  "take_rows": 1, "take_rows_many": 0,
-                                 "take_sharded": 0}
+                                 "take_sharded": 0, "halo_fill": 0,
+                                 "hyb_spmv_sharded": 0}
 
 
 def words(rs, n, dtype, device):
@@ -207,35 +208,126 @@ def test_kernels_reject_what_they_do_not_take(device):
                torch.zeros(16, device=device)[::2])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int32,
-                                   torch.float64])
+@pytest.mark.parametrize("dtype", WORD_DTYPES)
 def test_k4_matches_plain_version(device, dtype):
-    """K4 on the sharded poisson2d(200) ELL (4 shards): the stored
-    columns and a 1-D index with -1 sentinels, bitwise."""
+    """K4 on the sharded poisson2d(200) ELL (4 shards), bitwise its plain
+    version on every route: the vector route on the stored columns and on
+    a 1-D index with -1 sentinels, the scalar route on index views at a
+    4-byte offset; 1-, 4- and 8-byte words, bool in gives bool out.  The
+    halo comes from one ``halo_fill`` launch, equal to its plain
+    version."""
     a = shard_ell_halo(poisson2d(200).to_ell(dtype=torch.float32,
                                              device=device),
                        RowMesh(4, device))
     mesh, npr, h = a.shard
     rs = np.random.RandomState(17)
-    x = torch.from_numpy(rs.randint(-1000, 1000, a.npad)).to(device, dtype)
+    x = words(rs, a.npad, dtype, device)
+    g.reset_launch_counts()
     halo = mesh.boundary_halo(x, h)
+    assert torch.equal(halo, g.halo_fill_plain(x, mesh.ndev, h))
     idx1 = torch.where(torch.from_numpy(rs.rand(a.npad) < 0.1).to(device),
                        -1, a.cols[1]).to(torch.int32).contiguous()
-    g.reset_launch_counts()
-    for idx in (a.cols, idx1):
+    cases = [(a.cols, "vector"), (idx1, "vector"),
+             (unaligned(a.cols), "scalar"), (unaligned(idx1), "scalar")]
+    for idx, route in cases:
+        assert g.take_sharded_route(idx, x, halo, npr, h) == route
         out = g.take_sharded(idx, x, halo, npr, h)
-        assert torch.equal(out, g.take_sharded_plain(idx, x, halo, npr, h))
+        ref = g.take_sharded_plain(idx, x, halo, npr, h)
+        assert out.dtype == dtype and out.shape == idx.shape
+        assert torch.equal(out.view(-1).view(torch.uint8),
+                           ref.view(-1).view(torch.uint8))
     valid = a.slot_mask()
     assert torch.equal(g.take_sharded(a.cols, x, halo, npr, h)[valid],
                        x[a.cols.long()][valid])
     torch.cuda.synchronize()
-    assert g.launch_counts()["take_sharded"] == 3
+    assert g.launch_counts()["take_sharded"] == len(cases) + 1
+    assert g.launch_counts()["halo_fill"] == 1
+
+
+def unaligned(idx):
+    """A copy of ``idx`` 4 bytes off 16-byte alignment."""
+    buf = torch.empty(idx.numel() + 1, dtype=idx.dtype, device=idx.device)
+    out = buf[1:].view(idx.shape)
+    out.copy_(idx)
+    return out
+
+
+def sharded_cases(device, dtype):
+    """The sharded SpMV's inputs on every route, from the two halo levels
+    of poisson2d(96) on 4 shards (npr a multiple of 8, not of 1024) and a
+    random operator with an odd npr (one row a thread)."""
+    from multigridsolver_tpu_torch.parallel.exchange import exchange_recv
+    from multigridsolver_tpu_torch.parallel.halo import (halo_width,
+                                                         make_halo_op)
+    from multigridsolver_tpu_torch.parallel.sharded import shard_operator
+    mesh = RowMesh(4, device)
+    s = build_amg_setup(poisson2d(96).to_ell(dtype=dtype, device=device),
+                        bench_config())
+    rs = np.random.RandomState(41)
+    cases = []
+    for lvl in range(2):
+        op = make_halo_op(shard_operator(hybrid_from_ell(s.matrices[lvl]),
+                                         mesh), mesh)
+        x = torch.from_numpy(rs.rand(op.npad)).to(device, dtype)
+        w = halo_width(op.a)
+        recv = exchange_recv(x.view(4, -1), op.ex_send_idx, mesh) \
+            if op.ex_L else None
+        cases.append((op.a.dvals, op.a.lanes, x, 4,
+                      dict(halo=mesh.boundary_halo(x, w), cols=op.rest_cols,
+                           vals=op.rest_vals, recv=recv, route=op.route)))
+        if op.rest_cols is not None:      # the same remainder, global x
+            glob = op.a.ell.cols.view(op.a.ell.k, 4, -1).transpose(0, 1) \
+                .contiguous()
+            cases.append((op.a.dvals, op.a.lanes, x, 4,
+                          dict(halo=cases[-1][4]["halo"], cols=glob,
+                               vals=op.rest_vals, route="all_gather")))
+    ndev, npr, offs = 3, 4099, (-70, -1, 0, 1, 70)
+    cols, vals = banded(rs, ndev * npr, 3, 200)
+    cb = torch.from_numpy(np.ascontiguousarray(
+        cols[:, :ndev * npr].reshape(3, ndev, npr).transpose(1, 0, 2))
+    ).to(device)
+    vb = torch.from_numpy(np.ascontiguousarray(
+        vals[:, :ndev * npr].reshape(3, ndev, npr).transpose(1, 0, 2))
+    ).to(device, dtype)
+    x = torch.from_numpy(rs.rand(ndev * npr)).to(device, dtype)
+    cases.append((torch.from_numpy(rs.rand(len(offs), ndev * npr)).to(
+        device, dtype), g.pack_lanes(offs), x, ndev,
+        dict(halo=g.halo_fill(x, ndev, 72), cols=cb, vals=vb,
+             route="all_gather")))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hyb_spmv_sharded_matches_plain_version(device, dtype):
+    """K1 on a row mesh on every route (pure DIA; 48 lanes with the
+    exchanged remainder read in place; the same remainder from the global
+    x; an odd npr on the one-row route; no lanes), one launch each,
+    bitwise its plain version."""
+    cases = sharded_cases(device, dtype)
+    # D = 0: the ExchangeELL form of level 1's remainder
+    lvl1 = cases[1]
+    assert lvl1[4]["route"] == "exchange" and lvl1[4]["recv"] is not None
+    cases.append((None, g.NO_LANES, lvl1[2], 4,
+                  dict(cols=lvl1[4]["cols"], vals=lvl1[4]["vals"],
+                       recv=lvl1[4]["recv"], route="exchange")))
+    routes = []
+    for dv, lanes, x, ndev, kw in cases:
+        routes.append((kw["route"], g.hyb_spmv_sharded_route(dv, lanes, x,
+                                                             ndev, **kw)))
+        g.reset_launch_counts()
+        y = g.hyb_spmv_sharded(dv, lanes, x, ndev, **kw)
+        assert g.launch_counts()["hyb_spmv_sharded"] == 1
+        ref = g.hyb_spmv_sharded_plain(dv, lanes, x, ndev, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref), routes[-1]
+    assert {r for r, _ in routes} == {"none", "exchange", "all_gather"}
+    assert {k for _, k in routes} >= {"window", "scalar"}
 
 
 def test_sharded_path_on_card_matches_cpu(device):
     """poisson2d(96) f32 on a 4-shard mesh: the same labels on the card as
-    on the CPU, K4 launched, and the two-level sharded solve in the same
-    iteration count (±1)."""
+    on the CPU, K4 and the sharded SpMV launched, and the two-level
+    sharded solve in the same iteration count (±1)."""
     a = poisson2d(96)
     b = np.random.RandomState(0).rand(a.nrows)
     cfg = bench_config()
@@ -257,6 +349,9 @@ def test_sharded_path_on_card_matches_cpu(device):
     for lg, lc in zip(s_gpu.level_labels, s_cpu.level_labels):
         assert torch.equal(lg.cpu(), lc)
     assert all(v > 0 for v in n_gpu.values())
+    # every sharded-level SpMV is one launch, after one halo fill
+    assert n_gpu["hyb_spmv_sharded"] > 0
+    assert n_gpu["halo_fill"] >= n_gpu["take_sharded"]
     assert r_gpu.status == 0 and r_gpu.relres < 1e-6
     assert abs(r_gpu.iterations - r_cpu.iterations) <= 1
 
@@ -285,7 +380,8 @@ def test_main_path_on_card_matches_cpu(device, dtype):
     for lg, lc in zip(s_gpu.level_labels, s_cpu.level_labels):
         assert torch.equal(lg.cpu(), lc)
     assert all(v == 0 for v in n_cpu.values())
-    assert n_gpu.pop("take_sharded") == 0
+    for name in ("take_sharded", "halo_fill", "hyb_spmv_sharded"):
+        assert n_gpu.pop(name) == 0
     assert all(v > 0 for v in n_gpu.values())
     # per pass: one partner fetch, one member fetch per member set
     assert n_gpu["take_rows_many"] == 2 * n_gpu["take_rows"]

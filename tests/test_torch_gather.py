@@ -264,7 +264,110 @@ class TestRouting:
         xp = torch.from_numpy(np.random.RandomState(13).rand(tc.shape[1]))
         assert torch.equal(g.hyb_spmv(dv, lanes, tc, tv, xp),
                            g.hyb_spmv_plain(dv, lanes, tc, tv, xp))
+        halo = g.halo_fill(xp, 4, 50)
+        assert torch.equal(halo, g.halo_fill_plain(xp, 4, 50))
+        assert torch.equal(g.take_sharded(tc, xp, halo, tc.shape[1] // 4, 50),
+                           g.take_sharded_plain(tc, xp, halo,
+                                                tc.shape[1] // 4, 50))
+        assert torch.equal(
+            g.hyb_spmv_sharded(dv, lanes, xp, 4, halo=halo),
+            g.hyb_spmv_sharded_plain(dv, lanes, xp, 4, halo=halo))
         assert g.launch_counts() == {"gather_spmv": 0, "hyb_spmv": 0,
                                      "take": 0, "take_rows": 0,
                                      "take_rows_many": 0,
-                                     "take_sharded": 0}
+                                     "take_sharded": 0, "halo_fill": 0,
+                                     "hyb_spmv_sharded": 0}
+
+
+def sharded_operator(ndev, npr, offsets, K, band, seed):
+    """A random f64 operator over ndev shards of npr rows: DIA lanes at
+    ``offsets`` (0 where i + o leaves the rows) and a slot-major ELL
+    remainder of K slots within ``band`` of the diagonal, as a global
+    ``(K, npad)`` ELL and as per-shard blocks ``(ndev, K, npr)``."""
+    rs = np.random.RandomState(seed)
+    npad = ndev * npr
+    rows = np.arange(npad)
+    dvals = rs.rand(len(offsets), npad)
+    for d, o in enumerate(offsets):
+        dvals[d, (rows + o < 0) | (rows + o >= npad)] = 0.0
+    cols, vals, _, _ = banded_ell_arrays(npad, K, band, seed=seed + 1)
+    cols, vals = cols[:, :npad], vals[:, :npad]
+    blocks = [torch.from_numpy(np.ascontiguousarray(
+        t.reshape(K, ndev, npr).transpose(1, 0, 2))) for t in (cols, vals)]
+    return (torch.from_numpy(dvals), g.pack_lanes(offsets),
+            torch.from_numpy(np.ascontiguousarray(cols)),
+            torch.from_numpy(np.ascontiguousarray(vals)), blocks,
+            torch.from_numpy(rs.rand(npad)))
+
+
+class TestShardedSpMV:
+    """K1 on a row mesh (``hyb_spmv_sharded``): its plain version, which
+    the wrapper takes on the CPU, computes the unsharded operator's SpMV
+    on every remainder route.  (Its bits against the route it replaced and
+    against the JAX package's sharded SpMV: ``test_torch_parallel.py``.)"""
+
+    @pytest.mark.parametrize("route", ["none", "all_gather", "exchange"])
+    @pytest.mark.parametrize("ndev,npr", [(4, 512), (3, 337), (1, 1000)])
+    def test_equals_unsharded_spmv(self, route, ndev, npr):
+        from multigridsolver_tpu_torch.parallel.exchange import (
+            build_exchange_plan)
+        offsets = (-40, -1, 0, 1, 40)
+        dv, lanes, cols, vals, (cb, vb), x = sharded_operator(
+            ndev, npr, offsets, 3, 60, seed=ndev)
+        w = 40
+        halo = g.halo_fill(x, ndev, w)
+        kw = dict(halo=halo, route=route)
+        if route == "none":
+            ref = g.hyb_spmv_plain(dv, lanes, None, None, x)
+        else:
+            ref = g.hyb_spmv_plain(dv, lanes, cols, vals, x)
+            kw.update(cols=cb, vals=vb)
+        if route == "exchange":
+            plan = build_exchange_plan(cols.numpy(),
+                                       np.full(ndev * npr, 3, np.int32), ndev)
+            assert plan is not None
+            kw["cols"] = torch.from_numpy(np.ascontiguousarray(
+                plan.cols.reshape(3, ndev, npr).transpose(1, 0, 2)))
+            send = torch.from_numpy(plan.send_idx).long()
+            if plan.L:
+                sv = torch.gather(x.view(ndev, npr), 1, send.view(ndev, -1))
+                kw["recv"] = sv.view(send.shape).transpose(0, 1) \
+                    .reshape(ndev, -1)
+        y = g.hyb_spmv_sharded(dv, lanes, x, ndev, **kw)
+        assert y.shape == x.shape and y.dtype == x.dtype
+        torch.testing.assert_close(y, ref, rtol=1e-12, atol=1e-12)
+
+    def test_without_lanes_is_the_remainder_alone(self):
+        """D = 0 (the ``ExchangeELL`` case): the interior is +0, so the
+        result is the per-shard ELL SpMV bit for bit."""
+        ndev, npr = 4, 256
+        _, _, cols, vals, (cb, vb), x = sharded_operator(ndev, npr, (0,), 5,
+                                                         30, seed=7)
+        y = g.hyb_spmv_sharded(None, g.NO_LANES, x, ndev, cols=cb, vals=vb,
+                               route="all_gather")
+        assert torch.equal(y, g.gather_spmv_plain(cols, vals, x))
+
+    def test_rejects_what_the_kernel_does_not_take(self):
+        dv, lanes, cols, vals, (cb, vb), x = sharded_operator(
+            4, 64, (-8, 0, 8), 2, 10, seed=3)
+        halo = g.halo_fill(x, 4, 8)
+        with pytest.raises(ValueError):          # no such route
+            g.hyb_spmv_sharded(dv, lanes, x, 4, halo=halo, route="ring")
+        with pytest.raises(ValueError):          # halo narrower than offsets
+            g.hyb_spmv_sharded(dv, lanes, x, 4, halo=g.halo_fill(x, 4, 4))
+        with pytest.raises(ValueError):          # off-shard lanes, no halo
+            g.hyb_spmv_sharded(dv, lanes, x, 4)
+        with pytest.raises(ValueError):          # remainder on route none
+            g.hyb_spmv_sharded(dv, lanes, x, 4, halo=halo, cols=cb, vals=vb)
+        with pytest.raises(ValueError):          # global (K, npad) cols
+            g.hyb_spmv_sharded(dv, lanes, x, 4, halo=halo, cols=cols,
+                               vals=vals, route="all_gather")
+        with pytest.raises(ValueError):          # recv off the exchange
+            g.hyb_spmv_sharded(dv, lanes, x, 4, halo=halo, cols=cb, vals=vb,
+                               recv=x.view(4, -1), route="all_gather")
+        with pytest.raises(ValueError):          # x does not split
+            g.hyb_spmv_sharded(dv[:, :255], lanes, x[:255], 4, halo=halo)
+        with pytest.raises(ValueError):          # 2-byte words
+            g.halo_fill(x.half(), 4, 8)
+        with pytest.raises(ValueError):          # halo wider than a shard
+            g.halo_fill(x, 4, 65)

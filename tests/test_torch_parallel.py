@@ -49,10 +49,12 @@ from multigridsolver_tpu_torch.ops import gather as g
 from multigridsolver_tpu_torch.parallel import (HaloOp, RowMesh,
                                                 build_amg_setup_sharded,
                                                 build_exchange_plan,
-                                                exchange_ell, shard_ell,
+                                                exchange_ell, halo_width,
+                                                shard_ell,
                                                 shard_ell_halo,
                                                 shard_hierarchy,
                                                 shard_operator)
+from multigridsolver_tpu_torch.parallel.exchange import exchange_recv
 from multigridsolver_tpu_torch.parallel.halo import make_halo_op
 from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
 from multigridsolver_tpu_torch.solve.api import pad_vector, solve_hierarchy
@@ -91,6 +93,33 @@ def local_noise(n, rs, nnz=120, spread=150):
 def k4_calls():
     """Count the sharded gathers that take K4's wrapper."""
     return mock.patch.object(g, "take_sharded", wraps=g.take_sharded)
+
+
+def sharded_spmv_calls():
+    """Count the sharded SpMVs that take ``hyb_spmv_sharded``'s wrapper."""
+    return mock.patch.object(g, "hyb_spmv_sharded",
+                             wraps=g.hyb_spmv_sharded)
+
+
+def halo_case(case, jmesh, mesh):
+    """A sharded hybrid operator of each remainder route, the JAX
+    package's and the port's, with a random x (numpy seed)."""
+    rs = np.random.RandomState(5)
+    if case == "dia":
+        m = jgen.poisson2d(40).to_scipy()
+    elif case == "exchange":
+        m = (jgen.poisson2d(30).to_scipy() + local_noise(900, rs)).tocsr()
+    else:   # uniform noise: the plan is refused
+        m = (jgen.poisson2d(30).to_scipy()
+             + sp.random(900, 900, density=0.01, random_state=rs,
+                         format="csr")).tocsr()
+    je = JCSR.from_scipy(m).to_ell(dtype=jnp.float64)
+    jh = j_shard_op(jhyb.hybrid_from_ell_device(je), jmesh)
+    op = make_halo_op(shard_operator(thyb.hybrid_from_ell(to_port(je)),
+                                     mesh), mesh)
+    x = np.zeros(op.npad)
+    x[: m.shape[1]] = rs.randn(m.shape[1])
+    return m, jh, op, x
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +199,31 @@ class TestRowMesh:
         assert torch.equal(halo[1, 0], send[0, 1:])
         assert torch.equal(halo[0, 1], send[1, :2])
 
+    @pytest.mark.parametrize("dtype", [torch.bool, torch.uint8,
+                                       torch.float32, torch.int32,
+                                       torch.float64, torch.int64])
+    @pytest.mark.parametrize("ndev,npr,h", [(NDEV, 6, 2), (3, 5, 5),
+                                            (1, 4, 3), (NDEV, 4, 0)])
+    def test_halo_fill_is_the_two_open_shifts(self, dtype, ndev, npr, h):
+        """The halo K4 and the sharded SpMV read: ``[s, 0]`` the last h
+        words of shard s - 1 and ``[s, 1]`` the first h of shard s + 1, as
+        the two non-cyclic shifts give them, with zeros at the mesh ends;
+        one dtype in, the same out."""
+        mesh = RowMesh(ndev, "cpu")
+        rs = np.random.RandomState(ndev * 100 + npr * 10 + h)
+        x = torch.from_numpy(rs.randint(1, 100, ndev * npr)).to(dtype)
+        xs = x.view(ndev, npr)
+        halo = mesh.boundary_halo(x, h)
+        assert halo.shape == (ndev, 2, h) and halo.dtype == dtype
+        assert torch.equal(halo, g.halo_fill_plain(x, ndev, h))
+        assert torch.equal(halo, torch.stack(
+            [mesh.shift_open(xs[:, npr - h:], 1),
+             mesh.shift_open(xs[:, :h], -1)], 1))
+        assert not halo[0, 0].any() and not halo[-1, 1].any()
+        for s in range(1, ndev):
+            assert torch.equal(halo[s, 0], xs[s - 1, npr - h:])
+            assert torch.equal(halo[s - 1, 1], xs[s, :h])
+
     def test_several_devices_not_ported(self):
         with pytest.raises(NotImplementedError):
             RowMesh(2, ["cpu", "meta"])
@@ -190,7 +244,10 @@ class TestK4:
         x = r["xf"] if field == "f32" else r["xb"]
         with k4_calls() as calls:
             out = tops.take_neighbor(a, torch.from_numpy(x[: a.npad])).numpy()
+        # one K4 call on the field as it is: a bool field as its bytes,
+        # with no int32 round trip
         assert calls.call_count == 1
+        assert calls.call_args.args[1].dtype == torch.from_numpy(x).dtype
         ref = r["out_f"] if field == "f32" else r["out_b"]
         n = a.nrows
         valid = a.slot_mask().numpy()[:, :n]
@@ -209,7 +266,7 @@ class TestK4:
         np.testing.assert_array_equal(out, r["xf"][: a.npad])
 
     @pytest.mark.parametrize("dtype", [np.float32, np.int32, np.float64,
-                                       np.int64])
+                                       np.int64, np.uint8, np.bool_])
     def test_wrapper_equals_global_gather_in_range(self, dtype):
         """Indices inside each shard's covered range read the global
         source; -1 sentinels and other out-of-range indices clamp into the
@@ -219,7 +276,8 @@ class TestK4:
         n = npr * ndev
         rows = np.arange(n)
         idx = np.clip(rows + rs.randint(-h, h + 1, (k, n)), 0, n - 1)
-        x = torch.from_numpy((rs.rand(n) * 1e6).astype(dtype))
+        x = torch.from_numpy((rs.rand(n) * 1e6).astype(dtype)
+                             if dtype != np.bool_ else rs.rand(n) < 0.5)
         halo = RowMesh(ndev, "cpu").boundary_halo(x, h)
         out = g.take_sharded(torch.from_numpy(idx.astype(np.int32)), x, halo,
                              npr, h)
@@ -278,10 +336,12 @@ class TestExchange:
         assert op is not None and jop is not None and op.L == jop.L > 0
         x = np.zeros(op.npad)
         x[: m.shape[1]] = rs.randn(m.shape[1])
-        with mock.patch.object(g, "gather_spmv",
-                               wraps=g.gather_spmv) as k1:
+        with sharded_spmv_calls() as k1:
             y = tops.spmv(op, torch.from_numpy(x)).numpy()
-        assert k1.call_count == NDEV
+        # one sharded SpMV for all shards, reading [x_local | recv] in place
+        assert k1.call_count == 1
+        assert k1.call_args.kwargs["route"] == "exchange"
+        assert k1.call_args.kwargs["recv"].shape == (NDEV, NDEV * op.L)
         y_j = np.asarray(jax.jit(jops.spmv)(
             jop, j_shard_vector(jnp.asarray(x), jmesh)))
         np.testing.assert_allclose(y, y_j, rtol=1e-12, atol=1e-12)
@@ -292,31 +352,79 @@ class TestExchange:
 class TestHaloSpMV:
     @pytest.mark.parametrize("case", ["dia", "exchange", "all_gather"])
     def test_matches_jax_and_scipy(self, jmesh, mesh, case):
-        rs = np.random.RandomState(5)
-        if case == "dia":
-            m = jgen.poisson2d(40).to_scipy()
-        elif case == "exchange":
-            m = (jgen.poisson2d(30).to_scipy() + local_noise(900, rs)).tocsr()
-        else:   # uniform noise: the plan is refused
-            m = (jgen.poisson2d(30).to_scipy()
-                 + sp.random(900, 900, density=0.01, random_state=rs,
-                             format="csr")).tocsr()
-        je = JCSR.from_scipy(m).to_ell(dtype=jnp.float64)
-        jh = j_shard_op(jhyb.hybrid_from_ell_device(je), jmesh)
-        op = make_halo_op(shard_operator(thyb.hybrid_from_ell(to_port(je)),
-                                         mesh), mesh)
+        """``HaloOp.spmv`` is one ``hyb_spmv_sharded`` call (its plain
+        version here) and gives the JAX package's sharded SpMV and
+        scipy's."""
+        m, jh, op, x = halo_case(case, jmesh, mesh)
         assert isinstance(op, HaloOp) and op.route == {
             "dia": "none", "exchange": "exchange",
             "all_gather": "all_gather"}[case]
         assert op.npad == jh.npad and op.offsets == jh.offsets
-        x = np.zeros(op.npad)
-        x[: m.shape[1]] = rs.randn(m.shape[1])
-        y = tops.spmv(op, torch.from_numpy(x)).numpy()
+        with sharded_spmv_calls() as calls:
+            y = tops.spmv(op, torch.from_numpy(x)).numpy()
+        assert calls.call_count == 1
+        assert calls.call_args.kwargs["route"] == op.route
         y_j = np.asarray(jax.jit(j_halo_spmv(jh, jmesh))(
             j_shard_vector(jnp.asarray(x), jmesh)))
         np.testing.assert_allclose(y, y_j, rtol=1e-12, atol=1e-12)
         np.testing.assert_allclose(y[: m.shape[0]], m @ x[: m.shape[1]],
                                    rtol=1e-12, atol=1e-12)
+
+    @pytest.mark.parametrize("case", ["dia", "exchange", "all_gather"])
+    def test_open_halo_equals_ring_halo_bitwise(self, jmesh, mesh, case):
+        """The sharded SpMV reads the non-cyclic halo (zeros at the mesh
+        ends); the ring exchange it replaced, as the JAX package runs it,
+        carries the far end's values there.  Those only meet zero dval
+        lanes, so the two give the same bits, for an x that is nonzero at
+        both ends."""
+        _, _, op, x = halo_case(case, jmesh, mesh)
+        x = torch.from_numpy(x + 1.0)
+        ndev, w = mesh.ndev, halo_width(op.a)
+        xs = x.view(ndev, -1)
+        ring = torch.stack([mesh.shift_ring(xs[:, xs.shape[1] - w:], 1),
+                            mesh.shift_ring(xs[:, :w], -1)], 1)
+        assert not torch.equal(ring, mesh.boundary_halo(x, w))
+        recv = exchange_recv(xs, op.ex_send_idx, mesh) if op.ex_L else None
+        args = (op.a.dvals, op.a.lanes, x, ndev)
+        rest = dict(cols=op.rest_cols, vals=op.rest_vals, recv=recv,
+                    route=op.route)
+        y_ring = g.hyb_spmv_sharded_plain(*args, halo=ring, **rest)
+        assert torch.equal(tops.spmv(op, x), y_ring)
+
+    @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+    def test_two_levels_fold_order_of_the_lane_loop(self, mesh, dtype):
+        """On both sharded levels of poisson2d(64) (pure DIA, then 48
+        lanes with an exchanged remainder) the sharded SpMV is bitwise
+        the route it replaced: the interior lane loop, the remainder by
+        K1 on each shard on ``[x_local | recv]``, then the corrections."""
+        ell = tgen.poisson2d(64).to_ell(dtype=dtype, device="cpu")
+        cfg = tcfg.HierarchyConfig(max_coarse_size=512,
+                                   aggregation=tcfg.AggregationConfig(
+                                       ktg=10.0, npass=2, tou=8.0,
+                                       symmetric=True))
+        s = build_amg_setup(ell, cfg)
+        rs = np.random.RandomState(2)
+        for lvl in range(2):
+            op = make_halo_op(shard_operator(
+                thyb.hybrid_from_ell(s.matrices[lvl]), mesh), mesh)
+            assert op.route == ("none", "exchange")[lvl]
+            x = torch.from_numpy(rs.rand(op.npad)).to(dtype)
+            ndev, w = mesh.ndev, halo_width(op.a)
+            xs = x.view(ndev, -1)
+            npr = xs.shape[1]
+            dv = op.a.dvals.view(len(op.offsets), ndev, npr)
+            y = g.sharded_dia_interior_plain(dv, xs, op.offsets, w)
+            if op.route == "exchange":
+                src = torch.cat([xs, exchange_recv(xs, op.ex_send_idx, mesh)],
+                                1) if op.ex_L else xs
+                y = y + torch.stack([g.gather_spmv(op.rest_cols[r],
+                                                   op.rest_vals[r], src[r])
+                                     for r in range(ndev)])
+            left = mesh.shift_ring(xs[:, npr - w:], 1)
+            right = mesh.shift_ring(xs[:, :w], -1)
+            y = g.sharded_dia_corrections_plain(y, dv, left, right,
+                                                op.offsets)
+            assert torch.equal(tops.spmv(op, x), y.view(-1))
 
     def test_halo_op_reads_as_its_hybrid(self, mesh):
         from multigridsolver_tpu_torch.solve import smoothers as tsm
