@@ -68,7 +68,28 @@ Phases, each printing a line:
 9. csky SpMV: ``hyb_spmv`` on every level of that hierarchy (remainders
    wider than 16 slots on the kernel's generic instance), bitwise against
    the old route and to 1e-6 against its plain version, timed at the
-   widest remainder beside cuSPARSE.
+   widest remainder beside cuSPARSE;
+10. smoothers: the solve-phase breadth, each configuration held to the
+   JAX package's CPU run of it (``tools/smoother_anchor_jax.py``): on the
+   poisson1000 f32 setup of step 4, K-cycles on gs2, ilu0, jacobi and
+   l1jacobi with BiCGStab, Chebyshev(2) with FCG and with GMRES(30) (in
+   f32 to 1e-6 and 1e-5, held to convergence only: the reference's f32
+   dot products stall it; in f64 on the same operators, its count held),
+   gs2 and Chebyshev(2) with the additive combination (where the
+   reference diverges), and gs2 through ``solve()``; on the csky3d(80) setup of step 8, gs2 and ilu0
+   with ``solve_refined`` to 1e-8 and one solve to 1e-6;
+   ``two_level_from_p`` on poisson2d(100) and (250) with P from the CLI
+   setup's aggregation (gs2 multiplicative and additive, ilu0); each with its
+   walls, counts, relres and f64 true residual, the phase's launch counts,
+   one smoother application on levels 0 and 1 counted (each triangular
+   SpMV of gs2 one ``hyb_spmv`` launch), and per configuration the
+   kernels of one preconditioner call (hand-written ones by the launch
+   counts, all by ``torch.profiler``); then the new kernel shapes: the
+   split triangular hybrids through ``hyb_spmv`` against the plain
+   ``spmv_tri`` and cuSPARSE on the triangle, ILU(0)'s factors through
+   ``gather_spmv``, and ilu0's two-source row fetch (K3) at csky3d(80)
+   level 1 bitwise, each timed beside its plain version, its library
+   call and its bound.
 
 The last two lines are a JSON object with the per-kernel results (for
 ``hyb_spmv`` and ``hyb_spmv_sharded`` also the old route's time, for
@@ -77,9 +98,9 @@ The last two lines are a JSON object with the per-kernel results (for
 launch per source, for K2-K4 the scalar route's) and
 the launch floor, and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
-sum of its launches in the first unsharded f32 run, the sharded run and
-the csky run, each counted from 0; ``launches_by_path`` gives them
-apart.  Any failure exits non-zero before the result lines.  There is no CPU fallback.
+sum of its launches in the first unsharded f32 run, the sharded run, the
+csky run and the smoothers phase, each counted from 0;
+``launches_by_path`` gives them apart.  Any failure exits non-zero before the result lines.  There is no CPU fallback.
 """
 from __future__ import annotations
 
@@ -102,6 +123,64 @@ ITERS_RANGE = (7, 9)
 # reproduce its levels and its iteration counts
 CSKY_EXPECT = dict(levels=[512000, 147137, 46562, 15189, 4739, 1387, 357],
                    inner=20, outer=3, iterations=10)
+# the JAX package's own runs of the smoothers phase's configurations on the
+# CPU in f32 (``tools/smoother_anchor_jax.py``, b from RandomState(0)): the
+# port must reproduce each iteration count and status
+SMOOTHER_EXPECT = {
+    "poisson": dict(gs2=6, ilu0=7, jacobi=8, l1jacobi=11, cheb2_fcg=14,
+                    cheb2_gmres_f64=13, gs2_solve=6),
+    # GMRES in float32 at n = 10⁶ has no JAX CPU anchor: XLA:CPU's float32
+    # dot products over 10⁶ terms are off by about 1e-4 relative (the
+    # card's by about 1e-8), which stalls the reference's Gram-Schmidt (210
+    # iterations at 1e-6, status 1, relres 1.34e-6; 65 at 1e-5).  Held to
+    # convergence; the count is held in float64 (cheb2_gmres_f64)
+    "unanchored": dict(cheb2_gmres=210, cheb2_gmres_1e5=65),
+    # the additive combination inside the K-cycle diverges in the JAX run
+    # (gs2: relres 7.7e6 at the 200-iteration cap; Chebyshev(2): an
+    # ω-breakdown at iteration 77, relres 1.9e16): held to no convergence.
+    # The additive combination's counts are held on the two-level
+    # preconditioner, where it converges
+    "diverges": ("gs2_additive", "cheb2_additive"),
+    # ilu0 on csky3d(80) has no usable anchor: BiCGStab's residual there
+    # swings by orders of magnitude from one iteration to the next (relres
+    # 4.4e-6 at 100 iterations, 1.3e-2 at 150 on the card), so its count is
+    # decided by last-bit differences; the JAX run took 669 inner / 5 outer
+    # and 113 at 1e-6.  Held to convergence (600 iterations allowed)
+    "csky": dict(gs2=dict(inner=13, outer=3, iterations=6),
+                 ilu0=None),
+    "csky_unanchored": dict(ilu0=dict(inner=669, outer=5, iterations=113)),
+    # per grid: the aggregates of P, and the counts
+    "two_level": {100: dict(nc=2830, gs2=6, gs2_additive=12, ilu0=6),
+                  250: dict(nc=18156, gs2=6, gs2_additive=13, ilu0=6)},
+}
+# the smoothers phase's configurations on poisson1000: (hierarchy settings
+# beside the K-cycle's, Krylov method)
+KCYCLE = dict(cycle="kcycle", pre_smooth=1, post_smooth=1, kcycle_depth=3)
+POISSON_RUNS = {
+    "gs2": (dict(smoother_kind="gs2"), "bicgstab"),
+    "ilu0": (dict(smoother_kind="ilu0"), "bicgstab"),
+    "jacobi": (dict(smoother_kind="jacobi"), "bicgstab"),
+    "l1jacobi": (dict(smoother_kind="l1jacobi"), "bicgstab"),
+    "cheb2_fcg": (dict(smoother_kind="chebyshev", degree=2), "fcg"),
+    "cheb2_gmres": (dict(smoother_kind="chebyshev", degree=2), "gmres"),
+    "cheb2_gmres_1e5": (dict(smoother_kind="chebyshev", degree=2), "gmres",
+                        1e-5),
+    # the same K-cycle in float64 on the float32 setup's operators (cast)
+    "cheb2_gmres_f64": (dict(smoother_kind="chebyshev", degree=2), "gmres",
+                        1e-6, "float64"),
+    "gs2_additive": (dict(smoother_kind="gs2", combination="additive"),
+                     "bicgstab"),
+    "cheb2_additive": (dict(smoother_kind="chebyshev", degree=2,
+                            combination="additive"), "bicgstab"),
+}
+# the CLI's documented poisson10000, and poisson2d(250) (18,156 aggregates:
+# a dense coarse LU of 1.3 GB in f32)
+TWO_LEVEL_GRIDS = (100, 250)
+TWO_LEVEL_RUNS = {
+    "gs2": dict(smoother_kind="gs2"),
+    "gs2_additive": dict(smoother_kind="gs2", combination="additive"),
+    "ilu0": dict(smoother_kind="ilu0"),
+}
 # the card's sleep ahead of the timed calls: at least about 10 ms at the
 # H100's clocks, and twice what the host takes to enqueue them, counted
 # at the SM clock's maximum (about 2 GHz)
@@ -731,6 +810,7 @@ def phase_main_path(device, a) -> dict:
     check(f64["true_res"] < 1e-5,
           f"float64 true residual {f64['true_res']} >= 1e-5")
     first["labels"] = [l.cpu() for l in first["setup"].level_labels]
+    first["problem"] = a
     first["warm_times"] = second["times"]
     first["launches"] = counts
     first["f64"] = f64
@@ -1197,7 +1277,8 @@ def phase_csky(device, res) -> dict:
     csky_sum_check(setup, cfg.aggregation)
     csky_lookup(device, a, ell, res)
     csky_member_fetch(ell, cfg.aggregation, res)
-    return dict(launches=counts, hier=hier, setup=setup, times=times)
+    return dict(launches=counts, hier=hier, setup=setup, times=times,
+                a=a, b=b)
 
 
 def csky_sum_check(setup, agg) -> None:
@@ -1254,8 +1335,15 @@ def csky_lookup(device, a, ell, res) -> None:
           and torch.equal(plain.rownnz, ell.rownnz),
           "csky3d: the union pattern differs from the stored one")
     g.reset_launch_counts()
-    vt, hp = ops.transposed_slot_values(plain, with_pairs=True)
+    with g.launch_shapes() as shapes:
+        vt, hp = ops.transposed_slot_values(plain, with_pairs=True)
     takes = g.launch_counts()["take"]
+    # what the K2 launches must move: each index and each output word once,
+    # and each source at most once (the n words of a level vector)
+    nbytes = sum(c * (n * slots * (4 + w) + n * w)
+                 for (name, n, slots, w), c in shapes.items()
+                 if name == "take")
+    b_ms, b_by = bound_ms(nbytes)
     mask = ell.slot_mask()
     # invalid slots hold junk in the lookup and 0 in the field
     check_bits(torch.where(mask, vt, 0.0), ell.vals_t,
@@ -1268,8 +1356,11 @@ def csky_lookup(device, a, ell, res) -> None:
                  calls=5)
     log(f"csky3d lookup route, level 0: K={plain.k} npad={plain.npad}: "
         f"vals_t bitwise the field, pair mask the slot mask, {takes} K2 "
-        f"launches, {ms!r} ms an evaluation (the field: a read)")
+        f"launches, {ms!r} ms an evaluation (the field: a read), bound "
+        f"{b_ms!r} ms ({b_by}, {nbytes} bytes); no one library call "
+        "computes it")
     res.setdefault("take", {})["csky_lookup_ms"] = ms
+    res["take"]["csky_lookup_bound_ms"] = b_ms
 
 
 def csky_member_fetch(ell, agg, res) -> None:
@@ -1351,6 +1442,376 @@ def phase_csky_hyb(device, csky, res) -> None:
     res["hyb_spmv"]["csky_levels"] = per_level
 
 
+def check_count(tag, got, want) -> None:
+    """A count against its JAX CPU anchor (None: no anchor, logged as
+    unverified)."""
+    if want is None:
+        log(f"{tag}: count {got} UNVERIFIED (no JAX CPU anchor)")
+        return
+    check(got == want, f"{tag}: {got} iterations, the JAX CPU run took "
+          f"{want}")
+
+
+def solve_checks(tag, res, a_sp, b, tol=1e-6, true_bound=True) -> dict:
+    """Status 0, relres below ``tol`` and the f64 true residual of one
+    solve (f32 held to 10·tol above twice the storage floor, as the main
+    path holds 1e-6 to 1e-5, unless ``true_bound`` is False); returns the
+    logged row."""
+    import numpy as np
+    import torch
+    x = res.x.double().cpu().numpy()
+    check(bool(np.isfinite(x).all()) and x.shape == (a_sp.shape[0],),
+          f"{tag}: solution is not finite or has the wrong shape")
+    nb = np.linalg.norm(b)
+    true_res = float(np.linalg.norm(b - a_sp @ x) / nb)
+    floor = float(torch.finfo(torch.float32).eps / 2
+                  * np.linalg.norm(abs(a_sp) @ np.abs(x)) / nb)
+    check(res.status == 0, f"{tag}: status {res.status}")
+    check(res.relres < tol, f"{tag}: relres {res.relres} >= {tol}")
+    check(true_res < 10 * tol + 2 * floor or not true_bound,
+          f"{tag}: true residual {true_res} >= {10 * tol} + 2 * {floor}")
+    return dict(iterations=res.iterations, relres=res.relres,
+                status=res.status, true_relres=true_res,
+                storage_floor=floor)
+
+
+def phase_smoothers(device, main, csky, res) -> dict:
+    """The solve-phase breadth on the card, each configuration held to the
+    JAX package's CPU run of it (``SMOOTHER_EXPECT``): on poisson1000 f32's
+    setup (the main path's), K-cycles on gs2, ilu0, jacobi and l1jacobi
+    with BiCGStab, Chebyshev(2) with FCG and with GMRES (f32 to 1e-6 and
+    1e-5, f64 to 1e-6), gs2 and Chebyshev(2) additive, gs2 through
+    ``solve()``; on
+    csky3d(80)'s setup, gs2 and ilu0 with ``solve_refined`` to 1e-8 and
+    one solve to 1e-6; ``two_level_from_p`` on poisson2d(100) and (250)
+    with P from the CLI setup's aggregation.  Returns the phase's launch counts (set
+    to 0 at its start); then, for each configuration, the device kernels
+    per preconditioner call, and the new kernel shapes against their
+    plain versions."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.cli.generators import poisson2d
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.setup.aggregation import pairwise_aggregate
+    from multigridsolver_tpu_torch.setup.prolongation import p_csr_from_labels
+    from multigridsolver_tpu_torch.solve.api import (solve, solve_hierarchy,
+                                                     solve_refined,
+                                                     two_level_from_p)
+    from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
+    from multigridsolver_tpu_torch.utils.config import (AggregationConfig,
+                                                        CSKY_REFINE,
+                                                        SmootherConfig,
+                                                        SolveConfig,
+                                                        bench_config)
+    setup, b, a_sp = main["setup"], main["b"], main["a_sp"]
+    hiers, rows = {}, {}
+    g.reset_launch_counts()
+    for name, (kw, method, *more) in POISSON_RUNS.items():
+        tag = f"smoothers poisson1000 {name}"
+        tol, dtype = (more + [1e-6, "float32"][len(more):])[:2]
+        mats = setup.matrices
+        if dtype == "float64":
+            mats = [dataclasses.replace(m, vals=m.vals.double())
+                    for m in mats]
+        hier, t_h = timed(lambda: build_hierarchy(
+            mats[0], setup.level_labels, mats[1:], **dict(KCYCLE, **kw)))
+        out, t_s = timed(lambda: solve_hierarchy(hier, b, method=method,
+                                                 tol=tol, maxiter=200))
+        hiers[tag] = hier
+        if name in SMOOTHER_EXPECT["diverges"]:
+            rows[tag] = dict(method=method, hierarchy_s=t_h, solve_s=t_s,
+                             iterations=out.iterations, relres=out.relres,
+                             status=out.status)
+            log(f"{tag}: " + json.dumps(rows[tag]))
+            check(out.status != 0, f"{tag}: converged, the JAX CPU run "
+                  "diverges")
+            continue
+        rows[tag] = dict(method=method, tol=tol, dtype=dtype, hierarchy_s=t_h,
+                         solve_s=t_s, **solve_checks(tag, out, a_sp, b, tol))
+        log(f"{tag}: " + json.dumps(rows[tag]))
+        if name in SMOOTHER_EXPECT["unanchored"]:
+            log(f"{tag}: count {out.iterations} UNVERIFIED: the JAX CPU "
+                f"run's float32 dot products stall it at "
+                f"{SMOOTHER_EXPECT['unanchored'][name]}")
+            continue
+        check_count(tag, out.iterations, SMOOTHER_EXPECT["poisson"][name])
+    tag = "smoothers poisson1000 gs2_solve"
+    (x, info), t_s = timed(lambda: solve(main["problem"], b, SolveConfig(
+        method="bicgstab", tol=1e-6, max_iter=200, cycle="kcycle",
+        smoother=SmootherConfig(kind="gs2"), dtype="float32",
+        hierarchy=bench_config()), device=device))
+    true_res = float(np.linalg.norm(b - a_sp @ x) / np.linalg.norm(b))
+    rows[tag] = dict(iterations=info["iterations"], relres=info["relres"],
+                     status=info["status"], true_relres=true_res,
+                     solve_s=t_s)
+    log(f"{tag}: " + json.dumps(rows[tag]))
+    check(info["status"] == 0 and info["relres"] < 1e-6,
+          f"{tag}: status {info['status']}, relres {info['relres']}")
+    check(info["iterations"] == rows["smoothers poisson1000 gs2"][
+        "iterations"], f"{tag}: solve() took {info['iterations']} "
+          "iterations, the gs2 K-cycle another count")
+    check_count(tag, info["iterations"],
+                SMOOTHER_EXPECT["poisson"]["gs2_solve"])
+
+    # csky3d(80): refinement to 1e-8 and one solve to 1e-6
+    c_sp = csky["a"].to_scipy()
+    cs = csky["setup"]
+    for kind in ("gs2", "ilu0"):
+        tag = f"smoothers csky3d80 {kind}"
+        hier, t_h = timed(lambda: build_hierarchy(
+            cs.matrices[0], cs.level_labels, cs.matrices[1:],
+            smoother_kind=kind, **KCYCLE))
+        (xr, relres, inner, outer), t_r = timed(lambda: solve_refined(
+            hier, csky["a"], csky["b"], **CSKY_REFINE))
+        out, t_s = timed(lambda: solve_hierarchy(
+            hier, csky["b"], method="bicgstab", tol=1e-6, maxiter=600))
+        true_ref = float(np.linalg.norm(csky["b"] - c_sp @ xr)
+                         / np.linalg.norm(csky["b"]))
+        rows[tag] = dict(hierarchy_s=t_h, solve_refined_s=t_r, solve_s=t_s,
+                         inner=inner, outer=outer, refined_relres=relres,
+                         refined_true_relres=true_ref,
+                         iterations=out.iterations, relres=out.relres,
+                         status=out.status)
+        log(f"{tag}: " + json.dumps(rows[tag]))
+        # ilu0's erratic f32 iterates (residuals swinging by orders of
+        # magnitude) part BiCGStab's recurred residual from the true one;
+        # its refinement, on f64 residuals, is held to 1e-8 below
+        rows[tag].update(solve_checks(tag, out, c_sp, csky["b"],
+                                      true_bound=kind != "ilu0"))
+        log(f"{tag}: true residual of the 1e-6 solve "
+            f"{rows[tag]['true_relres']!r}")
+        check(relres < 1e-8 and true_ref < 1e-8,
+              f"{tag}: refined relres {relres} (true {true_ref}) >= 1e-8")
+        want = SMOOTHER_EXPECT["csky"][kind]
+        if want is None:
+            log(f"{tag}: counts {inner} / {outer}, {out.iterations} "
+                "UNVERIFIED: erratic residual; the JAX CPU run "
+                f"{SMOOTHER_EXPECT['csky_unanchored'][kind]}")
+        else:
+            check((inner, outer, out.iterations) == (
+                want["inner"], want["outer"], want["iterations"]),
+                f"{tag}: {inner} inner / {outer} outer, {out.iterations} at "
+                f"1e-6; the JAX CPU run {want}")
+        hiers[tag] = hier
+
+    # two_level_from_p, P from the CLI setup command's aggregation
+    for grid in TWO_LEVEL_GRIDS:
+        want = SMOOTHER_EXPECT["two_level"][grid]
+        a2 = poisson2d(grid)
+        b2 = np.random.RandomState(0).rand(a2.nrows)
+        agg = pairwise_aggregate(
+            a2.to_ell(dtype=torch.float32, device=device,
+                      with_transpose=True),
+            AggregationConfig(ktg=10.0, npass=2, tou=8.0))
+        p = p_csr_from_labels(agg.labels[: a2.nrows].cpu().numpy(), agg.nc)
+        check(agg.nc == want["nc"], f"two-level poisson{a2.nrows} P: "
+              f"{agg.nc} aggregates, the JAX CPU run {want['nc']}")
+        for name, kw in TWO_LEVEL_RUNS.items():
+            tag = f"smoothers two-level poisson{a2.nrows} {name}"
+            hier, t_h = timed(lambda: two_level_from_p(
+                a2, p, dtype=torch.float32, device=device, **kw))
+            out, t_s = timed(lambda: solve_hierarchy(
+                hier, b2, method="bicgstab", tol=1e-6, maxiter=200))
+            rows[tag] = dict(hierarchy_s=t_h, solve_s=t_s, nc=agg.nc,
+                             **solve_checks(tag, out, a2.to_scipy(), b2))
+            log(f"{tag}: " + json.dumps(rows[tag]))
+            check_count(tag, out.iterations, want[name])
+            hiers[tag] = hier
+    counts = g.launch_counts()
+    log(f"smoothers launches: {json.dumps(counts)}")
+    for name in ("gather_spmv", "hyb_spmv", "take", "take_rows",
+                 "take_rows_many"):
+        check(counts[name] > 0,
+              f"kernel {name} was not launched by the smoothers phase")
+    smoother_launches(hiers, device)
+    csky_ilu0_factor_check(hiers["smoothers csky3d80 ilu0"], cs)
+    per_call = precondition_kernels(hiers, device)
+    for tag, row in rows.items():
+        row.update(per_call.get(tag, {}))
+    smoother_shapes(hiers, main, csky, res)
+    return counts
+
+
+def smoother_launches(hiers, device) -> None:
+    """One smoother application on levels 0 and 1 of the poisson gs2 and
+    ilu0 hierarchies, counted: every triangular SpMV of gs2 on a hybrid
+    level is one ``hyb_spmv`` launch (sweeps · 2 halves · (1 + inner)),
+    and ilu0 runs its L and U sweeps through ``gather_spmv``."""
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    for kind in ("gs2", "ilu0"):
+        hier = hiers[f"smoothers poisson1000 {kind}"]
+        for lvl in (0, 1):
+            level = hier.levels[lvl]
+            sm = level.smoother
+            x = torch.ones(level.a.npad, dtype=torch.float32, device=device)
+            g.reset_launch_counts()
+            sm.apply(level.a, x, x)
+            c = g.launch_counts()
+            if kind == "gs2":
+                want = dict(hyb_spmv=sm.sweeps * 2 * (1 + sm.inner_sweeps),
+                            gather_spmv=0)
+            else:
+                want = dict(hyb_spmv=sm.sweeps,
+                            gather_spmv=sm.sweeps * 2 * sm.inner_sweeps)
+            got = {k: c[k] for k in want}
+            log(f"smoothers {kind} level {lvl} one application: {got} "
+                f"(D={level.a.lanes.d}, K="
+                f"{0 if level.a.ell is None else level.a.ell.k})")
+            check(got == want, f"{kind} level {lvl}: one application "
+                  f"launched {got}, not {want}")
+
+
+def csky_ilu0_factor_check(hier, setup) -> None:
+    """ilu0's factors of csky3d(80) level 0 on the card, bitwise the same
+    factorisation on the host CPU (which gives the JAX package's factors
+    bit for bit on every level of this hierarchy; ``tests/
+    test_torch_smoothers.py`` holds that on csky3d(10))."""
+    import dataclasses
+    import torch
+    from multigridsolver_tpu_torch.solve.smoothers import ilu0_factor
+    m = setup.matrices[0]
+    host = dataclasses.replace(m, cols=m.cols.cpu(), vals=m.vals.cpu(),
+                               rownnz=m.rownnz.cpu(), vals_t=None)
+    sm = hier.levels[0].smoother
+    card = (sm.lmat.vals, sm.umat.vals, sm.udiag)
+    for name, c, h in zip(("lvals", "uvals", "udiag"), card,
+                          ilu0_factor(host)):
+        check_bits(c.cpu(), h, f"csky3d80 ilu0 {name} on the card against "
+                   "the host")
+    log("csky3d80 ilu0 level 0 factors: bitwise the host CPU's; max |L| "
+        f"{float(sm.lmat.vals.abs().max())!r}, max |U| "
+        f"{float(sm.umat.vals.abs().max())!r}, |udiag| in "
+        f"[{float(sm.udiag.abs().min())!r}, "
+        f"{float(sm.udiag.abs().max())!r}]")
+
+
+def precondition_kernels(hiers, device) -> dict:
+    """Per configuration: the hand-written kernels one preconditioner call
+    launches (the launch counts), and the device kernels, busy time and
+    walls of one call under ``torch.profiler`` (``phase_profile``)."""
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.utils.phase_profile import profile_call
+    out = {}
+    for tag, hier in hiers.items():
+        v = torch.rand(hier.levels[0].a.npad, dtype=hier.levels[0].a.dtype,
+                       device=device, generator=torch.Generator(
+                           device=device).manual_seed(0))
+        g.reset_launch_counts()
+        hier.precondition(v)
+        hand = {k: c for k, c in g.launch_counts().items() if c}
+        prof = profile_call(lambda: hier.precondition(v))
+        out[tag] = dict(hand_kernels_per_precondition=hand,
+                        device_kernels_per_precondition=prof[
+                            "device_kernels"],
+                        precondition_wall_s=prof["unprofiled_wall_s"],
+                        precondition_busy_s=prof["device_busy_s"],
+                        precondition_profiled_wall_s=prof["wall_s"])
+        log(f"{tag} per precondition: {json.dumps(out[tag])}")
+    return out
+
+
+def smoother_shapes(hiers, main, csky, res) -> None:
+    """The new kernel shapes of the smoothers phase against their plain
+    versions, timed: the split triangular hybrids through ``hyb_spmv``
+    (levels 1 and 0 of poisson1000) against the plain ``spmv_tri`` and
+    cuSPARSE on the triangle; ILU(0)'s L and U through ``gather_spmv`` on
+    their (K, npad) ELLs (level 0) against the plain version and cuSPARSE
+    on the factor; and ilu0's two-source row fetch (K3) at csky3d(80)
+    level 1, bitwise, beside one launch per source and one
+    ``index_select`` of the sources stacked as 4-byte words."""
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.sparse import hybrid
+    rs = np.random.RandomState(5)
+    gs2 = hiers["smoothers poisson1000 gs2"]
+    split = {}
+    for lvl, lower in ((1, True), (1, False), (0, True)):
+        level = gs2.levels[lvl]
+        part = level.smoother.lower if lower else level.smoother.upper
+        args = hyb_args(part)
+        x = torch.from_numpy(rs.rand(part.npad)).to(level.a.device,
+                                                    torch.float32)
+        y = g.hyb_spmv(*args, x)
+        ref = hybrid.spmv_tri(level.a, x, lower)
+        torch.cuda.synchronize()
+        check(torch.allclose(y, ref, rtol=1e-6, atol=1e-6),
+              f"split hyb_spmv level {lvl} lower={lower} disagrees with the "
+              "plain spmv_tri")
+        err = float((y.double() - ref.double()).abs().max())
+        # the triangle of the level's ELL as CSR, for cuSPARSE
+        ell = main["setup"].matrices[lvl]
+        ri = ell.row_iota()
+        mask = ell.slot_mask() & ((ell.cols < ri) if lower
+                                  else (ell.cols > ri))
+        csr = csr_of(ell.cols, ell.vals, mask, x.shape[0])
+        check(torch.allclose(torch.mv(csr, x), y, rtol=1e-4, atol=1e-4),
+              f"split level {lvl}: the cuSPARSE yardstick computes another "
+              "function")
+        nbytes, flops = hyb_bytes(*args, x)
+        key = f"level {lvl} {'lower' if lower else 'upper'}"
+        split[key] = record(
+            {}, "hyb_spmv", f"split triangle {key} f32 D={part.lanes.d} "
+            f"K={0 if part.ell is None else part.ell.k} npad={part.npad}",
+            err, lambda: g.hyb_spmv(*args, x),
+            lambda: hybrid.spmv_tri(level.a, x, lower),
+            lambda: torch.mv(csr, x), nbytes, flops)
+        split[key].update(bitwise_plain=bool(torch.equal(y, ref)),
+                          max_abs_err=err)
+    res.setdefault("hyb_spmv", {})["split_tri"] = split
+    # ILU(0)'s factors through K1 without lanes, level 0
+    ilu = hiers["smoothers poisson1000 ilu0"].levels[0].smoother
+    factors = {}
+    for tag, m in (("L", ilu.lmat), ("U", ilu.umat)):
+        x = torch.from_numpy(rs.rand(m.npad)).to(m.device, torch.float32)
+        y = g.gather_spmv(m.cols, m.vals, x)
+        ref = g.gather_spmv_plain(m.cols, m.vals, x)
+        torch.cuda.synchronize()
+        check(torch.allclose(y, ref, rtol=1e-6, atol=1e-6),
+              f"ILU {tag} gather_spmv disagrees with its plain version")
+        err = float((y.double() - ref.double()).abs().max())
+        nz = m.vals != 0
+        csr = csr_of(m.cols, m.vals, nz, x.shape[0])
+        w = x.element_size()
+        nbytes = m.cols.numel() * (4 + w) + (touched(m.cols) + m.npad) * w
+        factors[tag] = record(
+            {}, "gather_spmv", f"ILU(0) {tag} level 0 f32 K={m.k} "
+            f"npad={m.npad} ({int(nz.sum())} of {m.cols.numel()} slots "
+            "nonzero)", err, lambda: g.gather_spmv(m.cols, m.vals, x),
+            lambda: g.gather_spmv_plain(m.cols, m.vals, x),
+            lambda: torch.mv(csr, x), nbytes, 2 * int(nz.sum()))
+        factors[tag].update(bitwise_plain=bool(torch.equal(y, ref)),
+                            max_abs_err=err)
+    res.setdefault("gather_spmv", {})["ilu_factors"] = factors
+    # ilu0's row fetch at csky level 1: the columns and the upper values
+    # (with the diagonal) of row k = cols[s], for the slot s with the most
+    # distinct rows
+    m = csky["setup"].matrices[1]
+    sm = hiers["smoothers csky3d80 ilu0"].levels[1].smoother
+    ri = m.row_iota()
+    dg = m.slot_mask() & (m.cols == ri)
+    uw = torch.where(dg, sm.udiag[None, :], sm.umat.vals).contiguous()
+    s = max(range(m.k), key=lambda i: touched(m.cols[i]))
+    idx = m.cols[s].contiguous()
+    srcs = [m.cols, uw]
+    stacked = torch.cat([m.cols, uw.view(torch.int32)])
+    idx64 = idx.long()
+    check(torch.equal(stacked.index_select(1, idx64)[m.k:].view(
+        torch.float32), g.take_rows_plain(idx, uw)),
+          "the stacked index_select yardstick gathers another function")
+    out = record_take_rows(res, idx, srcs, f" csky3d level 1 ilu0 row fetch "
+                           f"slot {s}")
+    ms = time_ms(lambda: stacked.index_select(1, idx64))
+    out["library_ms"] = ms
+    log(f"kernel take_rows_many ilu0 row fetch: library (index_select of the "
+        f"two sources stacked as 4-byte words) {ms!r} ms")
+    res["take_rows_many"]["ilu0_row_fetch"] = out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: {PKG}/ not found beside this script",
@@ -1373,8 +1834,9 @@ def main() -> int:
         phase_sharded_spmv(device, hier_sh, unsharded, kres)
         csky = phase_csky(device, kres)
         phase_csky_hyb(device, csky, kres)
+        smoothers = phase_smoothers(device, unsharded, csky, kres)
         by_path = {"unsharded": unsharded["launches"], "sharded": sharded,
-                   "csky": csky["launches"]}
+                   "csky": csky["launches"], "smoothers": smoothers}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1388,7 +1850,9 @@ def main() -> int:
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "old_route_ms", "ldg_ms",
                         "scalar_ms", "op_spmv_ms", "csky_lookup_ms",
-                        "csky_member_fetch", "csky_levels")
+                        "csky_lookup_bound_ms", "csky_member_fetch",
+                        "csky_levels", "split_tri", "ilu_factors",
+                        "ilu0_row_fetch")
                        if k in kres[name]})
                for name in REPLACES]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms}))

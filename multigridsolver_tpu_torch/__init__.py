@@ -2,9 +2,11 @@
 hand-written CUDA gather kernels for NVIDIA Hopper.
 
 A port of ``multigridsolver_tpu`` (the JAX reference, which stays beside
-it): pairwise-aggregation setup, DIA+ELL hierarchy with Chebyshev
-smoothing and K-cycles, and preconditioned BiCGStab.  It imports torch,
-numpy and scipy, never jax.
+it): pairwise-aggregation setup, DIA+ELL hierarchy with Jacobi,
+Chebyshev, two-stage Gauss-Seidel or ILU(0) smoothing, V- and K-cycles
+in multiplicative or additive combination, the two-level preconditioner
+from an explicit P, and BiCGStab, CG, flexible CG or GMRES.  It imports
+torch, numpy and scipy, never jax.
 """
 from .sparse.formats import COO, CSR, ELL
 from .utils.config import (AggregationConfig, HierarchyConfig, SmootherConfig,

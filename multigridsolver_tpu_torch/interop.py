@@ -57,15 +57,45 @@ def setup_from_numpy(matrices: Sequence[dict],
     return SetupResult(matrices=mats, level_labels=labels)
 
 
+# the smoother state a hierarchy can carry over, per level
+SMOOTHER_STATE = ("d", "lvals", "uvals", "udiag")
+
+
 def hierarchy_from_numpy(matrices: Sequence[dict],
                          level_labels: Sequence[np.ndarray],
                          lmax_per_level: Sequence[float] | None = None,
+                         smoother_state: Sequence[dict] | None = None,
                          device: torch.device | str = "cuda",
                          **hierarchy_kw) -> Hierarchy:
-    """A Hierarchy over the given setup; ``lmax_per_level`` (safety factor
-    included) replaces the power-iteration estimates when given."""
+    """A Hierarchy over the given setup.  ``lmax_per_level`` (safety
+    factor included) replaces the power-iteration estimates when given.
+    ``smoother_state``: per level, a dict of numpy arrays that replace the
+    computed smoother state: the smoothing diagonal ``d`` (npad,), and for
+    ``ilu0`` the factors ``lvals``, ``uvals`` (K, npad, on the level's slot
+    pattern) and ``udiag`` (npad,).  The smoother's kind and parameters
+    are ``build_hierarchy``'s keywords in ``hierarchy_kw``."""
     s = setup_from_numpy(matrices, level_labels, device=device)
     lmax = None if lmax_per_level is None else [float(v)
                                                 for v in lmax_per_level]
+    state = None
+    if smoother_state is not None:
+        state = []
+        for m, st in zip(s.matrices, smoother_state):
+            unknown = set(st) - set(SMOOTHER_STATE)
+            if unknown:
+                raise ValueError(f"unknown smoother state {sorted(unknown)}; "
+                                 f"one of {SMOOTHER_STATE}")
+            lvl = {}
+            for key, v in st.items():
+                v = np.array(v)
+                shape = (m.k, m.npad) if key in ("lvals", "uvals") \
+                    else (m.npad,)
+                if v.shape != shape or v.dtype not in _DTYPES \
+                        or _DTYPES[v.dtype] != m.dtype:
+                    raise ValueError(f"smoother state {key}: {v.dtype} "
+                                     f"{v.shape}, the level needs {m.dtype} "
+                                     f"{shape}")
+                lvl[key] = torch.from_numpy(v).to(device)
+            state.append(lvl)
     return build_hierarchy(s.matrices[0], s.level_labels, s.matrices[1:],
-                           lmax=lmax, **hierarchy_kw)
+                           lmax=lmax, smoother_state=state, **hierarchy_kw)

@@ -167,12 +167,19 @@ def shard_hierarchy(hier: Hierarchy, mesh: RowMesh,
     exchange; its ELL remainder rides the index-list exchange, or the
     all-gather), a plain ELL an :class:`~.exchange.ExchangeELL`.  Labels
     are padded with -1 (excluded) and the smoother's diagonal with 1.0, so
-    the repadding never changes the operator.  The transfers keep their K1
+    the repadding never changes the operator.  Only Chebyshev smoothers
+    are sharded; any other kind is refused.  The transfers keep their K1
     arrays, rebuilt where a level's padding grew.  Deeper levels and the
     coarse LU are unchanged.
     """
     from .exchange import exchange_ell
     from .halo import halo_width, make_halo_op
+    kinds = sorted({lvl.smoother.kind for lvl in hier.levels} - {"chebyshev"})
+    if kinds:
+        raise NotImplementedError(
+            f"shard_hierarchy takes Chebyshev smoothers only, the hierarchy "
+            f"has {kinds}: their triangular parts and ILU factors are not "
+            "sharded")
     ndev = mesh.ndev
     levels = []
     for idx, lvl in enumerate(hier.levels):

@@ -9,6 +9,12 @@ kept entries to the top slots.  No global nnz-sized sort is needed.
 With the union field (``a.vals_t``) the transposed values are merged over
 the same slot pattern, which gives Ac[J, I] at every coarse slot (I, J):
 each coarse level inherits the field and never runs the lookup.
+
+For any piecewise-constant P given as labels (aggregates of any size,
+as an explicit P of the two-level preconditioner gives them),
+:func:`galerkin_ell` relabels A's entries, sorts them by (row, col) and
+sums each run of equal keys, folded in sorted order as the JAX package's
+segment sum adds them on the CPU, so that Ac is the same to the bit.
 """
 from __future__ import annotations
 
@@ -131,3 +137,81 @@ def galerkin_pair_ell(a: ELL, paired: torch.Tensor, labels: torch.Tensor,
               nrows=nc_true, ncols=nc_true,
               vals_t=None if vals_t is None else vals_t[:kc_eff].contiguous())
     return ell, nnz_c
+
+
+def coarse_coo(a: ELL, labels: torch.Tensor):
+    """Relabelled COO triplets of Ac, unreduced, with their validity mask:
+    (li, lj, v, valid), each (K · npad,) in slot-major order."""
+    li = labels[None, :].expand(a.k, a.npad)
+    lj = ell_ops.take_neighbor(a, labels)
+    valid = a.slot_mask() & (li >= 0) & (lj >= 0)
+    v = torch.where(valid, a.vals, 0.0)
+    return li.reshape(-1), lj.reshape(-1), v.reshape(-1), valid.reshape(-1)
+
+
+def galerkin_ell_arrays(a: ELL, labels: torch.Tensor, nc: int):
+    """Coarse ELL arrays of Ac = PᵀAP at padded coarse size ``nc``, their
+    slot width the longest coarse row.
+
+    The relabelled entries are sorted stably by (row, col) (invalid ones
+    last); each run of equal keys is one coarse entry, its value the fold
+    of the run in sorted order from 0 (one elementwise add per position in
+    the run, so the card adds in the same order as the CPU).  One host
+    read (nnz, the longest row and the longest run).
+
+    Returns (cols, vals, rownnz, [nnz_c, max_degree])."""
+    li, lj, v, valid = coarse_coo(a, labels)
+    m, dev = li.shape[0], a.device
+    li = torch.where(valid, li, nc).long()
+    lj = torch.where(valid, lj, nc).long()
+    order = torch.sort(li * (nc + 1) + lj, stable=True).indices
+    li, lj, v = li[order], lj[order], v[order]
+    valid_s = li < nc
+    newrun = valid_s.clone()
+    newrun[1:] &= (li[1:] != li[:-1]) | (lj[1:] != lj[:-1])
+    run_id = torch.cumsum(newrun, 0) - 1
+    idx = torch.arange(m, device=dev)
+    # each entry's offset in its run, each run's first entry and length
+    start = torch.cummax(torch.where(newrun, idx, 0), 0).values
+    offset = idx - start
+    dump = torch.where(newrun, run_id, m)
+    run_start = torch.full((m + 1,), m - 1, dtype=torch.long, device=dev)
+    run_start.scatter_(0, dump, idx)
+    last = valid_s.clone()
+    last[:-1] &= ~valid_s[1:] | newrun[1:]
+    run_len = torch.zeros((m + 1,), dtype=torch.long, device=dev)
+    run_len.scatter_(0, torch.where(last, run_id, m), offset + 1)
+    run_start, run_len = run_start[:m], run_len[:m]
+    run_valid = run_len > 0
+    rows_c = torch.where(run_valid, li[run_start], 0)
+    cols_c = torch.where(run_valid, lj[run_start], 0)
+    rownnz = torch.bincount(torch.where(run_valid, rows_c, nc),
+                            minlength=nc + 1)[:nc]
+    nnz_c, max_deg, longest = torch.stack(
+        [newrun.sum(), rownnz.max(), run_len.max()]).tolist()
+    kc = max(max_deg, 1)
+    sums = torch.zeros((m,), dtype=v.dtype, device=dev)
+    for p in range(longest):
+        at = (run_start + p).clamp_max(m - 1)
+        sums = torch.where(p < run_len, sums + v[at], sums)
+    # each run's slot within its row: runs are sorted, so a row's runs are
+    # consecutive and column-ordered
+    row_start = torch.cumsum(rownnz, 0) - rownnz
+    slot = idx - row_start[rows_c]
+    flat = torch.where(run_valid, slot * nc + rows_c, kc * nc)
+    cols = torch.zeros((kc * nc + 1,), dtype=torch.int32, device=dev)
+    cols.scatter_(0, flat, cols_c.to(torch.int32))
+    vals = torch.zeros((kc * nc + 1,), dtype=a.vals.dtype, device=dev)
+    vals.scatter_(0, flat, sums)
+    return (cols[:-1].view(kc, nc), vals[:-1].view(kc, nc),
+            rownnz.to(torch.int32), [nnz_c, max_deg])
+
+
+def galerkin_ell(a: ELL, labels: torch.Tensor, nc_true: int,
+                 row_pad: int = 1024) -> ELL:
+    """Ac = PᵀAP as an ELL for the piecewise-constant P of ``labels``
+    (``nc_true`` aggregates), its slot axis the longest coarse row."""
+    nc_pad = max(((nc_true + row_pad - 1) // row_pad) * row_pad, row_pad)
+    cols, vals, rownnz, _ = galerkin_ell_arrays(a, labels, nc_pad)
+    return ELL(cols=cols.contiguous(), vals=vals.contiguous(), rownnz=rownnz,
+               nrows=nc_true, ncols=nc_true)

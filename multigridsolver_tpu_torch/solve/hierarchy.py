@@ -3,7 +3,11 @@
 Keep coarsening until the coarsest operator is small enough to factor
 densely, smooth the intermediate levels, and traverse with V- or K-cycles
 (Notay's K-cycle: the recursive correction is accelerated by two steps of
-flexible CG on the finest ``kcycle_depth`` levels).
+flexible CG on the finest ``kcycle_depth`` levels).  At each level the
+coarse correction and the smoother combine multiplicatively, c + S(b − A
+c) (or with pre-smoothing), or additively, c + S(b): both act on b and
+the results are summed.  A two-level hierarchy with pre 0 and post 1 is
+the reference's own two-level preconditioner.
 
 Each level's operator is the DIA+ELL hybrid (solve-phase SpMV), its
 transfers the K1 arrays of ``setup/transfers.py``.  The coarsest level is
@@ -26,9 +30,11 @@ from .smoothers import Smoother, make_smoother
 class Level:
     """One grid level: its operator, the fine→coarse labels defining P
     ((npad,) int32, −1 for nodes outside the coarse space), the smoother
-    and the transfer arrays.  The operator is a HYB, or on a row-sharded
-    level a ``parallel.HaloOp`` (a HYB bound to its mesh, which reads as
-    that HYB everywhere but in ``ops.spmv``)."""
+    state (which for ``ilu0`` holds the factors of the level's ELL, and
+    for ``gs2`` the operator's strictly triangular parts) and the transfer
+    arrays.  The operator is a HYB, or on a row-sharded level a
+    ``parallel.HaloOp`` (a HYB bound to its mesh, which reads as that HYB
+    everywhere but in ``ops.spmv``)."""
 
     a: hyb.HYB
     labels: torch.Tensor
@@ -71,8 +77,18 @@ def make_coarse_solve(a: ELL) -> CoarseSolve:
     return CoarseSolve(a=a, lu=lu, piv=piv, m=m)
 
 
+COMBINATIONS = ("multiplicative", "additive")
+
+
 @dataclass
 class Hierarchy:
+    """The levels, the coarsest level's LU and how they are traversed:
+    ``cycle`` (``vcycle`` or ``kcycle``), the pre- and post-smoothing
+    counts, the K-cycle's inner steps and depth, and ``combination``, how
+    the coarse correction and the smoother combine at each level
+    (``multiplicative``: c + S(b − A c), or pre-smoothing first;
+    ``additive``: c + S(b), which ignores the smoothing counts)."""
+
     levels: tuple[Level, ...]
     coarse: CoarseSolve
     cycle: str = "vcycle"        # vcycle | kcycle
@@ -81,6 +97,7 @@ class Hierarchy:
     kcycle_steps: int = 2
     # inner-Krylov acceleration only on the finest kcycle_depth levels
     kcycle_depth: int = 3
+    combination: str = "multiplicative"
 
     @property
     def nlevels(self) -> int:
@@ -112,6 +129,10 @@ def _cycle(hier: Hierarchy, idx: int, b: torch.Tensor) -> torch.Tensor:
         return hier.coarse.solve(b)
     level = hier.levels[idx]
     a = level.a
+    if hier.combination == "additive":
+        # the coarse correction and the smoother both act on b, summed
+        return (_coarse_correct(level, hier, idx, b)
+                + level.smoother.solve(a, b))
     if hier.pre_smooth == 0:
         # coarse-grid correction of b itself, then post-smoothing: the
         # multiplicative two-level combination c + S(b − A c)
@@ -153,15 +174,23 @@ def build_hierarchy(a: ELL, level_labels: list[torch.Tensor],
                     coarse_ops: list[ELL], smoother_kind: str = "chebyshev",
                     cycle: str = "vcycle", pre_smooth: int = 0,
                     post_smooth: int = 1, kcycle_depth: int = 3,
+                    combination: str = "multiplicative",
                     lmax: list[float] | None = None,
+                    smoother_state: list[dict] | None = None,
                     **smoother_kw) -> Hierarchy:
     """Assemble a Hierarchy from setup outputs.
 
     ``level_labels[l]`` takes the level-l row space to level-(l+1)
     aggregates; ``coarse_ops[l]`` is the level-(l+1) operator.  Each
-    level operator is repacked into the DIA+ELL hybrid.  ``lmax``:
+    level operator is repacked into the DIA+ELL hybrid; the smoother
+    (``make_smoother``'s keywords in ``smoother_kw``) is made on the
+    hybrid, with the level's ELL for ``ilu0``'s factors.  ``lmax``:
     per-level λmax values (safety factor included) to use instead of the
-    power-iteration estimate."""
+    power-iteration estimate; ``smoother_state``: per-level tensors to use
+    instead of the computed ones (``make_smoother``'s ``state``)."""
+    if combination not in COMBINATIONS:
+        raise ValueError(f"unknown combination {combination!r}; one of "
+                         f"{COMBINATIONS}")
     mats = [a] + list(coarse_ops)
     levels = []
     for l, labels in enumerate(level_labels):
@@ -173,12 +202,13 @@ def build_hierarchy(a: ELL, level_labels: list[torch.Tensor],
         lab = lab[: fine.npad].contiguous()
         op = hyb.hybrid_from_ell(fine)
         tplan = tf.build_transfer_plan(lab, coarse.npad, fine.vals.dtype)
-        sm = make_smoother(op, kind=smoother_kind,
+        sm = make_smoother(op, kind=smoother_kind, ell=fine,
                            lmax=None if lmax is None else lmax[l],
-                           **smoother_kw)
+                           state=None if smoother_state is None
+                           else smoother_state[l], **smoother_kw)
         levels.append(Level(a=op, labels=lab, smoother=sm, tplan=tplan,
                             nc_pad=coarse.npad))
     return Hierarchy(levels=tuple(levels),
                      coarse=make_coarse_solve(mats[-1]), cycle=cycle,
                      pre_smooth=pre_smooth, post_smooth=post_smooth,
-                     kcycle_depth=kcycle_depth)
+                     kcycle_depth=kcycle_depth, combination=combination)

@@ -7,9 +7,15 @@ Entries on those diagonals need no gather: y += dval_d · shift(x, o_d),
 contiguous loads.  The stragglers stay in an ELL remainder.  One launch
 of the K1 kernel (``ops.gather.hyb_spmv``) computes both parts of an
 SpMV.
+
+The strictly lower and upper parts of a hybrid operator (the triangular
+SpMVs of two-stage Gauss-Seidel) are hybrid operators of their own,
+split once per level (:func:`triangular_part`), so that each triangular
+SpMV is one K1 launch too.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -119,6 +125,49 @@ def spmv(a: HYB, x: torch.Tensor) -> torch.Tensor:
     e = a.ell
     return gather.hyb_spmv(a.dvals, a.lanes, None if e is None else e.cols,
                            None if e is None else e.vals, x.contiguous())
+
+
+def _tri_mask(e: ELL, lower: bool) -> torch.Tensor:
+    """The remainder slots of the strictly lower (upper) part: stored
+    values with ``col < row`` (``col > row``), as the JAX package masks
+    them (its remainder's invalid slots hold val 0)."""
+    ri = e.row_iota()
+    return (e.vals != 0.0) & ((e.cols < ri) if lower else (e.cols > ri))
+
+
+def triangular_part(a: HYB, lower: bool) -> HYB:
+    """The strictly lower (``lower``) or strictly upper part of ``a`` as a
+    hybrid operator: the lanes with offset < 0 (> 0), and the remainder
+    with its values kept only on the triangle (the slot pattern is
+    unchanged).  Built once per level; its SpMV is one K1 launch."""
+    keep = [d for d, o in enumerate(a.offsets) if (o < 0 if lower else o > 0)]
+    ell = None
+    if a.ell is not None:
+        e = a.ell
+        ell = dataclasses.replace(
+            e, vals=torch.where(_tri_mask(e, lower), e.vals, 0.0).contiguous(),
+            vals_t=None)
+    return HYB(dvals=a.dvals[keep].contiguous(), ell=ell,
+               offsets=tuple(a.offsets[d] for d in keep), nrows=a.nrows,
+               ncols=a.ncols)
+
+
+def spmv_tri(a: HYB, x: torch.Tensor, lower: bool) -> torch.Tensor:
+    """Plain torch strictly lower (or upper) SpMV of ``a`` in the JAX
+    package's form: the lanes of one sign of offset one by one, then the
+    remainder masked to the triangle, gathered and summed over the slots.
+    :func:`triangular_part`'s one K1 launch computes the same product."""
+    n = a.npad
+    y = torch.zeros((n,), dtype=x.dtype, device=x.device)
+    for d, o in enumerate(a.offsets):
+        if (o < 0) if lower else (o > 0):
+            lo, hi = max(0, -o), min(n, n - o)
+            y[lo:hi] += a.dvals[d, lo:hi] * x[lo + o:hi + o]
+    if a.ell is not None:
+        e = a.ell
+        g = x[e.cols.long()]
+        y = y + (torch.where(_tri_mask(e, lower), e.vals, 0.0) * g).sum(0)
+    return y
 
 
 def extract_diag(a: HYB) -> torch.Tensor:

@@ -472,3 +472,102 @@ def test_nonsym_path_on_card_matches_cpu(device, dtype):
     _, relres, inner, outer = r_gpu
     assert relres < 1e-8 and outer == r_cpu[3]
     assert abs(inner - r_cpu[2]) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_split_triangular_hyb_spmv(device, dtype):
+    """gs2's triangular SpMVs on the card: on every level of poisson2d(96)
+    each strictly lower and upper part is one ``hyb_spmv`` launch, to
+    rtol 1e-6 (f32) / 1e-12 (f64) of the plain ``spmv_tri`` on the card,
+    and ``gs2_apply`` launches sweeps · 2 · (1 + inner) of them."""
+    from multigridsolver_tpu_torch.solve.smoothers import make_smoother
+    from multigridsolver_tpu_torch.sparse.hybrid import spmv_tri
+    rs = np.random.RandomState(23)
+    s = build_amg_setup(poisson2d(96).to_ell(dtype=dtype, device=device),
+                        bench_config())
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    for m in s.matrices:
+        h = hybrid_from_ell(m)
+        sm = make_smoother(h, kind="gs2")
+        x = torch.from_numpy(rs.rand(h.npad)).to(device, dtype)
+        for part, lower in ((sm.lower, True), (sm.upper, False)):
+            g.reset_launch_counts()
+            y = ops.spmv(part, x)
+            assert g.launch_counts()["hyb_spmv"] == 1
+            torch.testing.assert_close(y, spmv_tri(h, x, lower), rtol=tol,
+                                       atol=tol)
+        g.reset_launch_counts()
+        sm.apply(h, x, x)
+        assert g.launch_counts()["hyb_spmv"] == 12
+        assert g.launch_counts()["gather_spmv"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ilu0_row_fetch_and_factor_on_card(device, dtype):
+    """ilu0 on csky3d(16)'s first coarse level: the two-source row fetch
+    (K3: the columns and upper values of row k = cols[s]) bitwise its
+    plain version, one K3 launch per slot and sweep (the columns fetched
+    with the first sweep only), and the factors to rtol 1e-6 / 1e-12 of
+    the same factorisation on the CPU."""
+    from multigridsolver_tpu_torch.solve.smoothers import ilu0_factor
+    s = build_amg_setup(csky3d(16).to_ell(dtype=dtype, device=device,
+                                          with_transpose=True),
+                        csky_config())
+    m = s.matrices[1]
+    uw = torch.rand(m.cols.shape, dtype=dtype, device=device)
+    for k in range(m.k):
+        idx = m.cols[k].contiguous()
+        for out, ref in zip(g.take_rows_many(idx, [m.cols, uw]),
+                            g.take_rows_many_plain(idx, [m.cols, uw])):
+            assert torch.equal(out, ref)
+    g.reset_launch_counts()
+    got = ilu0_factor(m, sweeps=3)
+    n = g.launch_counts()
+    assert (n["take_rows_many"], n["take_rows"]) == (m.k, 2 * m.k)
+    cpu = dataclasses_to_cpu(m)
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    for a, b in zip(got, ilu0_factor(cpu, sweeps=3)):
+        torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+
+
+def dataclasses_to_cpu(m):
+    import dataclasses
+    return dataclasses.replace(
+        m, cols=m.cols.cpu(), vals=m.vals.cpu(), rownnz=m.rownnz.cpu(),
+        vals_t=None if m.vals_t is None else m.vals_t.cpu())
+
+
+def test_smoothers_and_two_level_on_card_match_cpu(device):
+    """poisson2d(96) f32: gs2, ilu0 and jacobi K-cycles, Chebyshev(2)
+    with FCG and GMRES, and ``two_level_from_p`` (gs2 additive) give the
+    CPU's iteration counts (±1) on the card."""
+    from multigridsolver_tpu_torch.setup.prolongation import (
+        p_csr_from_labels)
+    from multigridsolver_tpu_torch.solve.api import two_level_from_p
+    a = poisson2d(96)
+    b = np.random.RandomState(0).rand(a.nrows)
+    runs = {}
+    for dev in (torch.device("cpu"), device):
+        s = build_amg_setup(a.to_ell(dtype=torch.float32, device=dev),
+                            bench_config())
+        its = []
+        for kind, method in (("gs2", "bicgstab"), ("ilu0", "bicgstab"),
+                             ("jacobi", "bicgstab"), ("chebyshev", "fcg"),
+                             ("chebyshev", "gmres")):
+            kw = dict(BENCH_HIERARCHY, smoother_kind=kind)
+            h = build_hierarchy(s.matrices[0], s.level_labels,
+                                s.matrices[1:], **kw)
+            res = solve_hierarchy(h, b, method=method, tol=1e-6,
+                                  maxiter=200)
+            assert res.status == 0 and res.relres < 1e-6
+            its.append(res.iterations)
+        p = p_csr_from_labels(s.level_labels[0][: a.nrows].cpu().numpy(),
+                              s.matrices[1].nrows)
+        h = two_level_from_p(a, p, dtype=torch.float32, device=dev,
+                             smoother_kind="gs2", combination="additive")
+        res = solve_hierarchy(h, b, method="bicgstab", tol=1e-6,
+                              maxiter=200)
+        assert res.status == 0
+        its.append(res.iterations)
+        runs[dev.type] = its
+    assert all(abs(c - d) <= 1 for c, d in zip(runs["cpu"], runs["cuda"]))
