@@ -46,15 +46,28 @@ def ell_from_numpy(cols: np.ndarray, vals: np.ndarray, rownnz: np.ndarray,
 
 def setup_from_numpy(matrices: Sequence[dict],
                      level_labels: Sequence[np.ndarray],
-                     device: torch.device | str = "cuda") -> SetupResult:
+                     device: torch.device | str = "cuda",
+                     p_ops: Sequence[dict] | None = None,
+                     pt_ops: Sequence[dict] | None = None,
+                     smooth_omega: float | None = None) -> SetupResult:
     """A SetupResult from per-level operators, each a dict of
     ``ell_from_numpy``'s arguments (``cols``, ``vals``, ``rownnz``,
     ``nrows``, ``ncols``, optionally ``vals_t``), and the per-level label
-    vectors."""
+    vectors; for a smoothed setup also the per-level P and Pᵀ, dicts of
+    the same kind, and the ω they were smoothed with."""
     mats = [ell_from_numpy(**m, device=device) for m in matrices]
     labels = [torch.from_numpy(np.array(l, np.int32)).to(device)
               for l in level_labels]
-    return SetupResult(matrices=mats, level_labels=labels)
+    if (p_ops is None) != (pt_ops is None):
+        raise ValueError("p_ops and pt_ops come together")
+
+    def ells(ops):
+        return None if ops is None else [ell_from_numpy(**m, device=device)
+                                         for m in ops]
+    return SetupResult(matrices=mats, level_labels=labels, p_ops=ells(p_ops),
+                       pt_ops=ells(pt_ops),
+                       smooth_omega=None if smooth_omega is None
+                       else float(smooth_omega))
 
 
 # the smoother state a hierarchy can carry over, per level
@@ -66,6 +79,8 @@ def hierarchy_from_numpy(matrices: Sequence[dict],
                          lmax_per_level: Sequence[float] | None = None,
                          smoother_state: Sequence[dict] | None = None,
                          device: torch.device | str = "cuda",
+                         p_ops: Sequence[dict] | None = None,
+                         pt_ops: Sequence[dict] | None = None,
                          **hierarchy_kw) -> Hierarchy:
     """A Hierarchy over the given setup.  ``lmax_per_level`` (safety
     factor included) replaces the power-iteration estimates when given.
@@ -73,8 +88,11 @@ def hierarchy_from_numpy(matrices: Sequence[dict],
     computed smoother state: the smoothing diagonal ``d`` (npad,), and for
     ``ilu0`` the factors ``lvals``, ``uvals`` (K, npad, on the level's slot
     pattern) and ``udiag`` (npad,).  The smoother's kind and parameters
-    are ``build_hierarchy``'s keywords in ``hierarchy_kw``."""
-    s = setup_from_numpy(matrices, level_labels, device=device)
+    are ``build_hierarchy``'s keywords in ``hierarchy_kw``.  ``p_ops``/
+    ``pt_ops``: a smoothed setup's P and Pᵀ per level (dicts of
+    ``ell_from_numpy``'s arguments), its weighted transfers."""
+    s = setup_from_numpy(matrices, level_labels, device=device, p_ops=p_ops,
+                         pt_ops=pt_ops)
     lmax = None if lmax_per_level is None else [float(v)
                                                 for v in lmax_per_level]
     state = None
@@ -98,4 +116,5 @@ def hierarchy_from_numpy(matrices: Sequence[dict],
                 lvl[key] = torch.from_numpy(v).to(device)
             state.append(lvl)
     return build_hierarchy(s.matrices[0], s.level_labels, s.matrices[1:],
-                           lmax=lmax, smoother_state=state, **hierarchy_kw)
+                           lmax=lmax, smoother_state=state, p_ops=s.p_ops,
+                           pt_ops=s.pt_ops, **hierarchy_kw)

@@ -168,12 +168,18 @@ def shard_hierarchy(hier: Hierarchy, mesh: RowMesh,
     all-gather), a plain ELL an :class:`~.exchange.ExchangeELL`.  Labels
     are padded with -1 (excluded) and the smoother's diagonal with 1.0, so
     the repadding never changes the operator.  Only Chebyshev smoothers
-    are sharded; any other kind is refused.  The transfers keep their K1
+    and label transfers are sharded; any other smoother kind and a
+    weighted (smoothed) transfer plan are refused.  The transfers keep their K1
     arrays, rebuilt where a level's padding grew.  Deeper levels and the
     coarse LU are unchanged.
     """
     from .exchange import exchange_ell
     from .halo import halo_width, make_halo_op
+    if any(lvl.tplan.weighted for lvl in hier.levels):
+        # a smoothed P's coarse operators are P_sᵀ A P_s: the label
+        # transfers the sharded levels rebuild would apply another operator
+        raise NotImplementedError(
+            "shard_hierarchy does not shard weighted (smoothed) transfers")
     kinds = sorted({lvl.smoother.kind for lvl in hier.levels} - {"chebyshev"})
     if kinds:
         raise NotImplementedError(

@@ -63,13 +63,24 @@ def _best_neighbor(a: ELL, mu: torch.Tensor, allowed: torch.Tensor,
 
 
 def mutual_match(a: ELL, strength: StrengthData,
-                 max_rounds: int = 64) -> torch.Tensor:
+                 max_rounds: int = 64,
+                 skipass_frac: float = 0.0) -> torch.Tensor:
     """Run the handshake matching.
 
     Returns ``paired`` (npad,) int32: partner index for matched nodes,
-    own index for singletons, -1 for excluded nodes."""
+    own index for singletons, -1 for excluded nodes.
+
+    ``skipass_frac`` > 0: when the excluded rows reach ``skipass_frac`` ·
+    n, no pair is formed and every other row is a singleton (the
+    Fortran's skipass heuristic)."""
     nodes = torch.arange(a.npad, dtype=torch.int32, device=a.device)
     undecided = ~strength.excluded
+    skip = None
+    if skipass_frac > 0.0:
+        rows = a.row_mask()
+        n_excl = (strength.excluded & rows).sum()
+        skip = n_excl >= skipass_frac * rows.sum().clamp_min(1)
+        undecided = undecided & ~skip
     ehash = _edge_hash(a)
     paired = torch.full((a.npad,), -1, dtype=torch.int32, device=a.device)
     avail = undecided
@@ -85,6 +96,8 @@ def mutual_match(a: ELL, strength: StrengthData,
             break
     # leftovers (still available, not excluded) become singletons
     paired = torch.where(avail & undecided, nodes, paired)
+    if skip is not None:
+        paired = torch.where(skip & ~strength.excluded, nodes, paired)
     return torch.where(strength.excluded, -1, paired).to(torch.int32)
 
 

@@ -91,6 +91,55 @@ def mu_slots(a: ELL, diag: torch.Tensor, si: torch.Tensor,
     return 2.0 / ((1.0 / aii + 1.0 / ajj) * den)
 
 
+def mu_slots_notay(a: ELL, diag: torch.Tensor, si: torch.Tensor,
+                   vals_t: torch.Tensor,
+                   zerors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """AGMG 3.0's pair quality with the indefinite-case safeguards (the
+    δ/η/σ formulation of ``dag2l_findpairs_GI1``) for every stored slot.
+
+    Returns (valp, ok): ``valp`` is tested against κ, ``ok`` is False
+    where the 2×2 block fails nonnegative-definiteness.  ``zerors``
+    ((), bool) selects the row-sum-zero treatment of the diagonal.  The
+    operations follow the reference's compiled program: ``epsr`` is
+    ε·v and may be negative, and η₁η₂/(η₁+η₂) divided by g is evaluated
+    as η₁η₂ / ((η₁+η₂)·g), XLA's rewrite of (A/B)/C."""
+    eps_mach = torch.finfo(a.vals.dtype).eps
+    aii = diag[None, :]
+    ajj = ops.take_neighbor(a, diag)
+    s_i = si[None, :]
+    s_j = ops.take_neighbor(a, si)
+    vals = -(a.vals + vals_t) / 2.0
+    rsi = torch.where(zerors, 0.0, aii - s_i)
+    rsj = torch.where(zerors, 0.0, ajj - s_j)
+    eta1 = torch.where(zerors, 2.0 * s_i, 2.0 * aii)
+    eta2 = torch.where(zerors, 2.0 * s_j, 2.0 * ajj)
+    sig1 = s_i - vals
+    sig2 = s_j - vals
+    del1 = torch.where(sig1 > 0.0, rsi, rsi + 2.0 * sig1)
+    del2 = torch.where(sig2 > 0.0, rsj, rsj + 2.0 * sig2)
+    eta_num = eta1 * eta2
+    eta_sum = eta1 + eta2
+    epsr = eps_mach * vals
+    del12 = del1 + del2
+    small1 = del1.abs() < epsr
+    small2 = del2.abs() < epsr
+    valp_small = eta_num / (vals * eta_sum)
+    valp_gen = vals + (del1 * del2) / torch.where(del12 == 0.0, 1.0, del12)
+    # η₁η₂/(η₁+η₂) / g, for v > 0 (off the small cases) and v ≤ 0 alike
+    valp_h = eta_num / (eta_sum
+                        * torch.where(valp_gen == 0.0, 1.0, valp_gen))
+    pos_ok = torch.where(
+        small1 & small2, True,
+        torch.where(small1, del2 >= -epsr,
+                    torch.where(small2, del1 >= -epsr,
+                                (del12 >= -epsr) & (valp_gen >= 0.0))))
+    neg_ok = (del1 > 0.0) & (del2 > 0.0) & (valp_gen >= 0.0)
+    positive = vals > 0.0
+    ok = torch.where(positive, pos_ok, neg_ok)
+    valp = torch.where(positive & (small1 | small2), valp_small, valp_h)
+    return valp, ok
+
+
 def feasible_slots(diag: torch.Tensor, si: torch.Tensor, ajj: torch.Tensor,
                    s_j: torch.Tensor) -> torch.Tensor:
     """aᵢᵢ − sᵢ + aⱼⱼ − sⱼ ≥ 0 per slot, with a relative guard."""
@@ -118,8 +167,8 @@ def compute_strength(a: ELL, ktg: float, first_pass: bool,
     where the ELL carries it, else from one transposed-pattern lookup.
     ``mu_symmetrize`` averages μ with its transposed-slot value (one more
     lookup) and allows only slots whose transposed entry is stored."""
-    if mu_mode != "simple":
-        raise NotImplementedError(f"mu_mode {mu_mode!r} is not ported")
+    if mu_mode not in ("simple", "notay"):
+        raise ValueError(f"unknown mu_mode {mu_mode!r}")
     diag = ops.extract_diag(a)
     # one transposed-pattern pass per evaluation at most: its values and
     # pair mask feed every consumer below
@@ -164,11 +213,16 @@ def compute_strength(a: ELL, ktg: float, first_pass: bool,
     # stored-but-zero entries are not graph edges
     edge = nondiag & ((a.vals != 0.0) | (vals_t != 0.0))
     not_excl = ~excl[None, :] & ~ops.take_neighbor(a, excl)
-    ajj = ops.take_neighbor(a, diag)
-    s_j = ops.take_neighbor(a, si)
-    mu = mu_slots(a, diag, si, vals_t, ajj, s_j)
-    allowed = (edge & (mu > 0.0) & (mu <= ktg) & not_excl
-               & feasible_slots(diag, si, ajj, s_j))
+    if mu_mode == "notay":
+        # μ ≥ 0 (not > 0), and the 2×2 test in place of feasibility
+        mu, ok = mu_slots_notay(a, diag, si, vals_t, zerors)
+        allowed = edge & ok & (mu >= 0.0) & (mu <= ktg) & not_excl
+    else:
+        ajj = ops.take_neighbor(a, diag)
+        s_j = ops.take_neighbor(a, si)
+        mu = mu_slots(a, diag, si, vals_t, ajj, s_j)
+        allowed = (edge & (mu > 0.0) & (mu <= ktg) & not_excl
+                   & feasible_slots(diag, si, ajj, s_j))
     if mu_symmetrize:
         # μ(i→j) == μ(j→i) by construction, at the cost of one more
         # transposed-pattern pass

@@ -5,15 +5,19 @@
 * Restriction is a gather from the coarse side: a members-ELL whose row c
   lists the fine indices of aggregate c in ascending order,
   (Pᵀ v)[c] = Σ_m v[members[m, c]] — no scatter, no atomics.
+* A weighted plan (smoothed aggregation) takes an explicit P and its
+  transpose: prolongation is P's own K1 SpMV over the coarse vector,
+  restriction Pᵀ's over the fine one.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
 from ..ops import gather
-from ..sparse.formats import _round_up
+from ..sparse.formats import ELL, _round_up
 
 T = 1024   # row padding of every operator
 
@@ -30,6 +34,8 @@ class TransferPlan:
     m_vals: torch.Tensor    # (km, nc_t)
     npad_f: int
     nc_pad: int
+    # an explicit (smoothed) P: the labels do not describe it
+    weighted: bool = False
 
 
 def _members_ell(labels: torch.Tensor, nc_t: int, dtype: torch.dtype):
@@ -72,6 +78,27 @@ def build_transfer_plan(labels: torch.Tensor, nc_pad: int,
     return TransferPlan(p_cols=p_cols.contiguous(), p_vals=p_vals.contiguous(),
                         m_cols=m_cols, m_vals=m_vals, npad_f=npad_f,
                         nc_pad=nc_pad)
+
+
+def build_transfer_plan_from_p(p: ELL, pt: ELL, nc_pad: int) -> TransferPlan:
+    """A weighted plan from an explicit prolongation ELL ``p`` (n × nc)
+    and its transpose ``pt``, each with rows padded to a multiple of
+    1024."""
+    p, pt = repad_rows(p), repad_rows(pt)
+    return TransferPlan(p_cols=p.cols, p_vals=p.vals, m_cols=pt.cols,
+                        m_vals=pt.vals, npad_f=p.npad, nc_pad=nc_pad,
+                        weighted=True)
+
+
+def repad_rows(e: ELL) -> ELL:
+    """``e`` with its rows padded (empty) to a multiple of 1024."""
+    extra = _round_up(e.npad, T) - e.npad
+    if extra == 0:
+        return e
+    return dataclasses.replace(
+        e, cols=torch.nn.functional.pad(e.cols, (0, extra)),
+        vals=torch.nn.functional.pad(e.vals, (0, extra)),
+        rownnz=torch.nn.functional.pad(e.rownnz, (0, extra)))
 
 
 def prolong_fast(tp: TransferPlan, xc: torch.Tensor,

@@ -177,6 +177,8 @@ def build_hierarchy(a: ELL, level_labels: list[torch.Tensor],
                     combination: str = "multiplicative",
                     lmax: list[float] | None = None,
                     smoother_state: list[dict] | None = None,
+                    p_ops: list[ELL] | None = None,
+                    pt_ops: list[ELL] | None = None,
                     **smoother_kw) -> Hierarchy:
     """Assemble a Hierarchy from setup outputs.
 
@@ -187,7 +189,10 @@ def build_hierarchy(a: ELL, level_labels: list[torch.Tensor],
     hybrid, with the level's ELL for ``ilu0``'s factors.  ``lmax``:
     per-level λmax values (safety factor included) to use instead of the
     power-iteration estimate; ``smoother_state``: per-level tensors to use
-    instead of the computed ones (``make_smoother``'s ``state``)."""
+    instead of the computed ones (``make_smoother``'s ``state``).
+    ``p_ops``/``pt_ops``: per-level explicit prolongations and their
+    transposes (smoothed aggregation); each level's transfers are then
+    those weighted operators, never the labels'."""
     if combination not in COMBINATIONS:
         raise ValueError(f"unknown combination {combination!r}; one of "
                          f"{COMBINATIONS}")
@@ -201,7 +206,12 @@ def build_hierarchy(a: ELL, level_labels: list[torch.Tensor],
                                                -1)])
         lab = lab[: fine.npad].contiguous()
         op = hyb.hybrid_from_ell(fine)
-        tplan = tf.build_transfer_plan(lab, coarse.npad, fine.vals.dtype)
+        if p_ops is not None:
+            tplan = tf.build_transfer_plan_from_p(p_ops[l], pt_ops[l],
+                                                  coarse.npad)
+        else:
+            tplan = tf.build_transfer_plan(lab, coarse.npad,
+                                           fine.vals.dtype)
         sm = make_smoother(op, kind=smoother_kind, ell=fine,
                            lmax=None if lmax is None else lmax[l],
                            state=None if smoother_state is None

@@ -166,12 +166,17 @@ def test_build_amg_setup_levels_and_labels(ref, dt):
 
 
 def test_unported_options_raise():
+    """Only the greedy matching is refused (it comes with the io slice);
+    the quality options run (held to the JAX package in
+    ``test_torch_tentagg.py`` and ``test_torch_strength_modes.py``)."""
     ell = to_port(poisson2d(8).to_ell(dtype=jnp.float64))
-    for bad in (dict(matching="greedy"), dict(check_tentagg=True),
-                dict(skipass_frac=0.5), dict(mu_mode="notay")):
-        with pytest.raises(NotImplementedError):
-            tagg.pairwise_aggregate(
-                ell, tcfg.AggregationConfig(**{**AGG, **bad}))
+    with pytest.raises(NotImplementedError, match="io slice"):
+        tagg.pairwise_aggregate(
+            ell, tcfg.AggregationConfig(**{**AGG, "matching": "greedy"}))
+    for ok in (dict(check_tentagg=True), dict(skipass_frac=0.5),
+               dict(mu_mode="notay")):
+        assert tagg.pairwise_aggregate(
+            ell, tcfg.AggregationConfig(**{**AGG, **ok})).nc > 0
 
 
 def test_label_transfers_match_jax():
