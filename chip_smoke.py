@@ -201,7 +201,18 @@ QUALITY_EXPECT = {'csky_check': {'levels': [512000, 205358, 77038, 28813, 11206,
                     'p_k': [5, 14, 48],
                     'pt_k': [14, 37, 106],
                     'level_k': [5, 22, 79, 330],
+                    'p_sha256': ['d799d3980333a2c9',
+                                 '16b547bd784f646c',
+                                 'a0ff73ffbc3d3a34'],
+                    'pt_sha256': ['49cf65963f491acc',
+                                  'bc91761b88ba38c4',
+                                  '0132282c590a4f5c'],
+                    'ops_sha256': ['7b614977f77de4da',
+                                   '80718102130c6b85',
+                                   '657329cbe1399d88'],
                     'iterations': 5},
+ 'smooth_level0': {'grid': 500, 'nc': 73141,
+                   'labels_sha256': '562f5ee362d86ae4'},
  'csky_notay': {'levels': [512000, 150637, 84188, 58307, 43172, 31413,
                            22592, 16332, 11575, 7907, 5194, 3225],
                 'labels_sha256': ['2f619af1be861918',
@@ -225,10 +236,18 @@ QUALITY_EXPECT = {'csky_check': {'levels': [512000, 205358, 77038, 28813, 11206,
              'iterations': 4},
  'skipass': {'passes': [250000, 141892, 81050],
              'labels_sha256': 'a4c4ba04d3796f21'}}
+# the port's own CPU run of the csky3d(80) notay setup
+# (``tools/notay_witness_torch.py``, ``tools/notay_witness_results.json``):
+# its 1e-6 counts in float32 and in float64 on the same hierarchy
+NOTAY_WITNESS = {"float32": 10, "float64": 9}
 SMOOTH_OMEGA = 2.0 / 3.0
 # the smoothed cell's grid: the JAX package's SpGEMM outgrows the CPU
 # sandbox that writes the anchor past about 10⁴ rows
 SMOOTH_GRID = 100
+# the smoothed setup at full size, held without a JAX run of it: level 0's
+# labels to the JAX package's first round (``smooth_level0``), every
+# level's P_s and P_sᵀ A P_s to float64 products of the card's own inputs
+SMOOTH_FULL_GRID = 500
 SKIPASS_N = 1_000_000
 SKIPASS_AGGREGATION = dict(ktg=10.0, npass=2, tou=1e9, skipass_frac=0.7)
 # the smoothers phase's configurations on poisson1000: (hierarchy settings
@@ -1901,16 +1920,28 @@ def sha256_of(t, n: int | None = None) -> str:
         a if n is None else a[:n]).tobytes()).hexdigest()[:16]
 
 
-def profile_setup(tag, fn) -> dict:
+def ell_sha256(e) -> str:
+    """The first 16 hex digits of the SHA-256 of an ELL's columns, then its
+    values, as ``tools/quality_anchor_jax.py`` hashes the JAX package's."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256(np.ascontiguousarray(e.cols.cpu().numpy()).tobytes())
+    h.update(np.ascontiguousarray(e.vals.cpu().numpy()).tobytes())
+    return h.hexdigest()[:16]
+
+
+def profile_setup(tag, fn, repeats: int = 3, host_ops: bool = True) -> dict:
     """Walls, device busy time and device kernels of one setup
-    (``phase_profile.profile_call``: warm-up, three unprofiled calls, one
-    profiled)."""
+    (``phase_profile.profile_call``: warm-up, ``repeats`` unprofiled calls,
+    one profiled)."""
     from multigridsolver_tpu_torch.utils.phase_profile import profile_call
-    prof = profile_call(fn)
+    t0 = time.perf_counter()
+    prof = profile_call(fn, repeats, host_ops)
     row = dict(unprofiled_wall_s=prof["unprofiled_wall_s"],
                profiled_wall_s=prof["wall_s"],
                device_busy_s=prof["device_busy_s"],
-               device_kernels=prof["device_kernels"])
+               device_kernels=prof["device_kernels"],
+               profile_s=time.perf_counter() - t0)
     log(f"quality setup profile {tag}: {json.dumps(row)} top: "
         f"{json.dumps(prof['top'])}")
     return row
@@ -1921,8 +1952,11 @@ def phase_quality(device, main, csky, res) -> dict:
     the JAX package's CPU run (``QUALITY_EXPECT``,
     ``tools/quality_anchor_jax.py``): csky3d(80) with checktentagg (levels,
     labels, refined and 1e-6 counts, the verdict log), poisson2d(100) with
-    smoothed aggregation (levels, P widths, coarse K, count), csky3d(80)
-    with Notay's μ (levels, labels, count), ``refresh_setup`` of
+    smoothed aggregation (levels, P widths, coarse K, P_s/Pᵀ/operator
+    values bitwise, count), poisson2d(500) with smoothed aggregation
+    (level 0's labels; every level's P_s and P_sᵀAP_s against float64
+    products; convergence), csky3d(80) with Notay's μ (levels, labels;
+    the count equal to the port's CPU run's), ``refresh_setup`` of
     poisson1000 for 1.7·A + 0.3·I (coarse values bitwise ``galerkin_ell``'s
     and the anchor's, count) and skipass on the 10⁶-row chain (pass
     sizes, labels).  Returns the phase's launch counts (set to 0 at its
@@ -1932,6 +1966,7 @@ def phase_quality(device, main, csky, res) -> dict:
     with g.launch_shapes() as shapes:
         checked = quality_csky_check(device, csky)
         smoothed = quality_poisson_smooth(device)
+        full = quality_poisson_smooth_full(device)
         quality_csky_notay(device, csky)
         quality_refresh(device, main)
         quality_skipass(device)
@@ -1948,7 +1983,7 @@ def phase_quality(device, main, csky, res) -> dict:
                    if name == "take_rows_many" and srcs == (1, 1, 1))
     check(p0_fetch > 0, "no SpGEMM fetch of P0 went through K3")
     log(f"quality: SpGEMM fetches of P0 through K3: {p0_fetch}")
-    quality_profiles(checked, smoothed)
+    quality_profiles(checked, smoothed, full)
     quality_shapes(device, main, checked, res)
     return counts
 
@@ -2050,7 +2085,10 @@ def quality_poisson_smooth(device) -> dict:
                level_k=[m.k for m in setup.matrices],
                labels_sha256=[sha256_of(l.to(torch.int32), m.nrows)
                               for l, m in zip(setup.level_labels,
-                                              setup.matrices)])
+                                              setup.matrices)],
+               p_sha256=[ell_sha256(p) for p in setup.p_ops],
+               pt_sha256=[ell_sha256(p) for p in setup.pt_ops],
+               ops_sha256=[ell_sha256(m) for m in setup.matrices[1:]])
     row = solve_checks(tag, res6, a.to_scipy(), b)
     log(f"{tag}: levels {got['levels']} P widths {got['p_k']} Pt widths "
         f"{got['pt_k']} operator widths {got['level_k']}")
@@ -2068,7 +2106,153 @@ def quality_poisson_smooth(device) -> dict:
         setup=t_setup, hierarchy=t_hier, solve=t_solve))
 
 
+def nonzeros_of(m):
+    """A scipy matrix without its stored zeros."""
+    m = m.copy()
+    m.eliminate_zeros()
+    return m
+
+
+def ones_of(m):
+    """The pattern of a scipy matrix, every stored entry 1."""
+    m = m.copy()
+    m.data[:] = 1.0
+    return m
+
+
+def check_product(tag: str, got, exact, bound, pattern, terms: int,
+                  underflow) -> float:
+    """``got`` (an ELL) against the float64 product ``exact`` of its own
+    float32 inputs: each row's stored count equal to ``pattern``'s (the
+    product of the operands' patterns, as the merge keeps entries), and
+    every entry within (terms + 2)·2⁻²⁴ of ``bound`` (the product of the
+    operands' magnitudes) plus its row's ``underflow``, the rounding bound
+    of a float32 sum of ``terms`` products in any order: a relative 2⁻²⁴
+    an operation, and at most 2⁻¹⁵⁰ more for each product that lands
+    among the subnormals (sums there are exact).  Returns the largest
+    error over that bound."""
+    import numpy as np
+    import scipy.sparse as sp
+    n = got.nrows
+    check(np.array_equal(got.rownnz[:n].cpu().numpy(),
+                         np.diff(pattern.indptr)),
+          f"{tag}: row lengths differ from the operands' pattern product")
+    err = abs(got.to_csr().to_scipy() - exact)
+    scale = ((terms + 2) * 2.0 ** -24 * bound
+             + sp.diags(underflow) @ ones_of(bound))
+    over = (err - scale).tocoo()
+    if over.nnz and over.data.max() > 0.0:
+        w = int(over.data.argmax())
+        i, j = int(over.row[w]), int(over.col[w])
+        check(False, f"{tag}: entry ({i}, {j}) is off by {err[i, j]!r}, "
+              f"more than the float32 rounding bound of {terms} terms "
+              f"{scale[i, j]!r} (float64 product {exact[i, j]!r})")
+    # within the bound, err's entries lie on scale's pattern
+    return float(err.multiply(scale.power(-1)).max())
+
+
+def quality_poisson_smooth_full(device) -> dict:
+    """poisson2d(``SMOOTH_FULL_GRID``) with ``smooth_p`` on the card: level
+    0's labels equal the JAX package's first round; every level's P_s is
+    (I − ωD⁻¹A)P₀ and its operator P_sᵀ(AP_s), row lengths exactly and
+    values to the float32 rounding bound, against float64 products of the
+    level's own inputs; Pᵀ is P_s's transpose exactly; every level
+    restricts and prolongs through the weighted operators, and the
+    K-cycle BiCGStab converges to 1e-6."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from multigridsolver_tpu_torch.cli.generators import poisson2d
+    from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
+    from multigridsolver_tpu_torch.solve.api import solve_hierarchy
+    from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
+    from multigridsolver_tpu_torch.utils.config import (
+        BENCH_AGGREGATION, BENCH_HIERARCHY, AggregationConfig,
+        HierarchyConfig)
+    want = QUALITY_EXPECT["smooth_level0"]
+    check(want["grid"] == SMOOTH_FULL_GRID, "the level-0 anchor is of "
+          f"poisson2d({want['grid']}), not of poisson2d({SMOOTH_FULL_GRID})")
+    a = poisson2d(SMOOTH_FULL_GRID)
+    b = np.random.RandomState(0).rand(a.nrows)
+    tag = f"quality poisson{a.nrows} smooth_p"
+    cfg = HierarchyConfig(max_coarse_size=512, smooth_p=SMOOTH_OMEGA,
+                          aggregation=AggregationConfig(**BENCH_AGGREGATION))
+    ell = a.to_ell(dtype=torch.float32, device=device)
+    setup, t_setup = timed(lambda: build_amg_setup(ell, cfg))
+    levels = [m.nrows for m in setup.matrices]
+    log(f"{tag}: levels {levels} P widths {[p.k for p in setup.p_ops]} Pt "
+        f"widths {[p.k for p in setup.pt_ops]} operator widths "
+        f"{[m.k for m in setup.matrices]}, setup {t_setup:.4f} s")
+    check(levels[1] == want["nc"] and sha256_of(
+        setup.level_labels[0].to(torch.int32), a.nrows)
+        == want["labels_sha256"],
+          f"{tag}: level 0's labels differ from the JAX package's first "
+          "round")
+    omega32 = float(np.float32(SMOOTH_OMEGA))
+    errs = []
+    for l, (lab, ps, pt) in enumerate(zip(setup.level_labels, setup.p_ops,
+                                          setup.pt_ops)):
+        fine, coarse = setup.matrices[l], setup.matrices[l + 1]
+        n, nc = fine.nrows, coarse.nrows
+        lab = lab[:n].cpu().numpy()
+        ok = lab >= 0
+        # P₀, and P_s's rows of excluded nodes empty
+        p0 = sp.csr_matrix((np.ones(int(ok.sum())), (np.arange(n)[ok],
+                                                     lab[ok])),
+                           shape=(n, nc))
+        keep = sp.diags(ok.astype(np.float64))
+        a_l = nonzeros_of(fine.to_csr().to_scipy())
+        dinv = omega32 / a_l.diagonal()
+        scaled = sp.diags(dinv) @ a_l
+        m_exact = sp.identity(n, format="csr") - scaled
+        m_mag = sp.identity(n, format="csr") + abs(scaled)
+        k_a = int(np.diff(a_l.indptr).max())
+        # each entry of M one product a_ij·(ω/a_ii); P₀'s products by 1
+        # are exact
+        e_ps = check_product(
+            f"{tag} level {l} P_s", ps, keep @ m_exact @ p0,
+            keep @ m_mag @ p0, (keep @ ones_of(m_mag) @ p0).tocsr(),
+            k_a + 2, np.full(n, k_a * 2.0 ** -150))
+        ps_sp = ps.to_csr().to_scipy()
+        pt_sp = pt.to_csr().to_scipy()
+        check(abs(pt_sp - ps_sp.T).max() == 0.0
+              and np.array_equal(pt.rownnz[:nc].cpu().numpy(),
+                                 np.diff(ps_sp.T.tocsr().indptr)),
+              f"{tag} level {l}: Pt is not P_s's transpose")
+        pt_nz = nonzeros_of(pt_sp)
+        k_pt = int(np.diff(pt_nz.indptr).max())
+        # AP's entries each carry up to k_a products' underflow, which Pᵀ's
+        # row weighs by its magnitudes; then Pᵀ's own k_pt products
+        e_ac = check_product(
+            f"{tag} level {l + 1} operator", coarse, pt_nz @ (a_l @ ps_sp),
+            abs(pt_nz) @ (abs(a_l) @ abs(ps_sp)),
+            ones_of(pt_nz) @ (ones_of(a_l) @ ones_of(ps_sp)), k_a + k_pt,
+            (k_a * np.asarray(abs(pt_nz).sum(axis=1)).ravel() + k_pt)
+            * 2.0 ** -150)
+        errs.append((e_ps, e_ac))
+    log(f"{tag}: largest error of P_s and of P_sᵀAP_s per level, over the "
+        f"float32 rounding bound: {json.dumps(errs)}")
+    hier, t_hier = timed(lambda: build_hierarchy(
+        setup.matrices[0], setup.level_labels, setup.matrices[1:],
+        p_ops=setup.p_ops, pt_ops=setup.pt_ops, **BENCH_HIERARCHY))
+    check(all(lvl.tplan.weighted for lvl in hier.levels),
+          f"{tag}: a level's transfers are not the weighted P")
+    res6, t_solve = timed(lambda: solve_hierarchy(
+        hier, b, method="bicgstab", tol=1e-6, maxiter=200))
+    row = solve_checks(tag, res6, a.to_scipy(), b)
+    log(f"{tag} seconds: setup={t_setup:.4f} hierarchy={t_hier:.4f} "
+        f"solve={t_solve:.4f}; {json.dumps(row)}")
+    return dict(ell=ell, setup=setup, cfg=cfg, times=dict(
+        setup=t_setup, hierarchy=t_hier, solve=t_solve))
+
+
 def quality_csky_notay(device, csky) -> None:
+    """csky3d(80) with Notay's μ: levels and labels equal to the JAX CPU
+    anchor; the 1e-6 count equal to the port's own CPU run of the same
+    setup (``NOTAY_WITNESS``), in float32 and in float64 on the same
+    hierarchy.  The JAX CPU run takes one iteration more in float32, a
+    residual on the threshold that rounding decides (ROADMAP Queue 3)."""
+    import dataclasses
     import torch
     from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
     from multigridsolver_tpu_torch.solve.api import solve_hierarchy
@@ -2087,27 +2271,32 @@ def quality_csky_notay(device, csky) -> None:
                            setup.matrices[1:], **BENCH_HIERARCHY)
     res6, t_solve = timed(lambda: solve_hierarchy(
         hier, csky["b"], method="bicgstab", tol=1e-6, maxiter=200))
+    m64 = [dataclasses.replace(m, vals=m.vals.double(), vals_t=None)
+           for m in setup.matrices]
+    hier64 = build_hierarchy(m64[0], setup.level_labels, m64[1:],
+                             **BENCH_HIERARCHY)
+    res64 = solve_hierarchy(hier64, csky["b"], method="bicgstab", tol=1e-6,
+                            maxiter=200)
     levels = [m.nrows for m in setup.matrices]
     hashes = [sha256_of(l.to(torch.int32), m.nrows)
               for l, m in zip(setup.level_labels, setup.matrices)]
     log(f"{tag}: levels {levels} widths {[m.k for m in setup.matrices]} "
         f"setup={t_setup:.4f} s solve={t_solve:.4f} s, "
-        f"{res6.iterations} iterations relres {res6.relres!r}")
+        f"{res6.iterations} iterations relres {res6.relres!r}; float64 on "
+        f"the same hierarchy {res64.iterations} iterations relres "
+        f"{res64.relres!r}; the port on the CPU {NOTAY_WITNESS}, the JAX "
+        f"CPU run {want['iterations']}")
     check(levels == want["levels"],
           f"{tag}: levels {levels}, the JAX CPU run {want['levels']}")
     check(hashes == want["labels_sha256"],
           f"{tag}: labels differ from the JAX CPU run's")
-    # the count is not held equal: with labels bitwise the JAX package's,
-    # the card's solve took 10 iterations (relres 7.43e-7) where the JAX
-    # CPU run took 11 (2.88e-7), a residual on the threshold that rounding
-    # decides (ROADMAP Queue 3); held to one iteration of the anchor
-    check(res6.status == 0 and res6.relres < 1e-6
-          and abs(res6.iterations - want["iterations"]) <= 1,
+    check(res6.status == 0 and res6.iterations == NOTAY_WITNESS["float32"],
           f"{tag}: {res6.iterations} iterations (status {res6.status}), "
-          f"the JAX CPU run {want['iterations']}")
-    if res6.iterations != want["iterations"]:
-        log(f"{tag}: count {res6.iterations} UNVERIFIED (the JAX CPU run "
-            f"{want['iterations']})")
+          f"the port on the CPU {NOTAY_WITNESS['float32']}")
+    check(res64.status == 0
+          and res64.iterations == NOTAY_WITNESS["float64"],
+          f"{tag}: {res64.iterations} iterations in float64 (status "
+          f"{res64.status}), the port on the CPU {NOTAY_WITNESS['float64']}")
 
 
 def quality_refresh(device, main) -> None:
@@ -2188,9 +2377,11 @@ def quality_skipass(device) -> None:
           f"{want['passes']}")
 
 
-def quality_profiles(checked, smoothed) -> None:
+def quality_profiles(checked, smoothed, full) -> None:
     """Each quality setup beside the default setup of its problem, one
-    profiled call each: walls, device busy time, device kernels."""
+    profiled call each: walls, device busy time, device kernels; the
+    full-size smoothed setup profiled once, its unprofiled wall the one
+    its check timed."""
     from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
     from multigridsolver_tpu_torch.utils.config import (bench_config,
                                                         csky_config)
@@ -2209,6 +2400,14 @@ def quality_profiles(checked, smoothed) -> None:
             "csky3d80 check_tentagg", lambda: build_amg_setup(
                 checked["ell"], checked["cfg"])),
     }
+    big = f"poisson{full['ell'].nrows}"
+    rows[f"{big} default"] = profile_setup(
+        f"{big} default", lambda: build_amg_setup(full["ell"],
+                                                  bench_config()))
+    rows[f"{big} smooth_p"] = profile_setup(
+        f"{big} smooth_p", lambda: build_amg_setup(full["ell"], full["cfg"]),
+        repeats=0, host_ops=False)
+    rows[f"{big} smooth_p"]["unprofiled_wall_s"] = full["times"]["setup"]
     log("quality setup profiles: " + json.dumps(rows))
 
 
@@ -2221,12 +2420,10 @@ def quality_shapes(device, main, checked, res) -> None:
     from multigridsolver_tpu_torch.ops import gather as g
     from multigridsolver_tpu_torch.setup import aggregation as tagg
     from multigridsolver_tpu_torch.setup.galerkin import galerkin_pair_ell
-    from multigridsolver_tpu_torch.setup.matching import mutual_match
     from multigridsolver_tpu_torch.setup.smoothed import (
         jacobi_operator, smoothed_prolongation, tentative_p)
-    from multigridsolver_tpu_torch.setup.strength import compute_strength
     from multigridsolver_tpu_torch.setup.tentagg import (checktentagg,
-                                                         member_ranks)
+                                                         node_maps)
     from multigridsolver_tpu_torch.sparse.spgemm import (spgemm_ell,
                                                          transpose_ell)
     # SpGEMM's B-row fetch at poisson1000 level 0 (its aggregation is the
@@ -2270,27 +2467,23 @@ def quality_shapes(device, main, checked, res) -> None:
                            2 * int(valid.sum())))
     res["gather_spmv"]["weighted_transfers"] = rows
     # checktentagg's K2 gathers at csky3d(80) level 0, pass 2, first retry
+    # (whose matching is an unchecked pass's), on the maps it computes
     a0 = checked["ell"]
     cfg = checked["cfg"].aggregation
     paired, labels, nc, st = tagg.match_pass(a0, True, cfg)
     ac, _ = galerkin_pair_ell(a0, paired, labels, nc)
-    st2 = compute_strength(ac, cfg.ktg, False, checkdd=cfg.checkdd,
-                           trspos=cfg.trspos, fracnegrcsum=cfg.fracnegrcsum)
-    p2 = mutual_match(ac, st2, max_rounds=cfg.max_matching_rounds)
-    cn = torch.arange(p2.shape[0], dtype=torch.int32, device=device)
-    partner = torch.where(p2 >= 0, p2, cn)
-    lead_c = torch.minimum(cn, partner)
-    lab_ok = labels >= 0
-    lead_f = lead_c[torch.where(lab_ok, labels, 0).long()]
-    side = torch.where(labels == lead_f, 0, 1)
-    slot_f = (member_ranks(labels, 2) + 2 * side).clamp(0, 3) \
-        .to(torch.int32)
-    acc = checktentagg(a0, st.si, labels, ac, p2, cfg.ktg, st.zerors, 2)
+    p2 = tagg.match_pass(ac, False, cfg)[0]
+    km = 2 ** (2 - 1)
+    maps = node_maps(labels, p2, km)
+    acc = checktentagg(a0, st.si, labels, ac, p2, cfg.ktg, st.zerors, km)
     res["take"]["checktentagg"] = [
-        record_take(res, a0.cols, lead_f, " quality checktentagg lead_j"),
-        record_take(res, a0.cols, slot_f, " quality checktentagg slot_j"),
-        record_take(res, a0.cols, lab_ok, " quality checktentagg labok_j"),
-        record_take(res, lead_c[None, :].contiguous(), acc,
+        record_take(res, a0.cols, maps.lead_f,
+                    " quality checktentagg lead_j"),
+        record_take(res, a0.cols, maps.slot_f,
+                    " quality checktentagg slot_j"),
+        record_take(res, a0.cols, maps.lab_ok,
+                    " quality checktentagg labok_j"),
+        record_take(res, maps.lead_c[None, :].contiguous(), acc,
                     " quality checktentagg verdicts")]
 
 

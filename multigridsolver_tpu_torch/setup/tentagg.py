@@ -38,6 +38,8 @@ and the card give the same bits.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..sparse import ops
@@ -119,6 +121,38 @@ def _fold(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+class NodeMaps(NamedTuple):
+    """Where every node sits in the tentative merges of one pass."""
+
+    lead_c: torch.Tensor     # (ncp,) coarse node → its merge's leader
+    haspair_c: torch.Tensor  # (ncp,) coarse node has a partner
+    lab_ok: torch.Tensor     # (npad,) fine node is aggregated
+    lead_f: torch.Tensor     # (npad,) fine node → its merge's leader
+    inpair_f: torch.Tensor   # (npad,) fine node belongs to a merge
+    slot_f: torch.Tensor     # (npad,) fine node's row/column of W
+
+
+def node_maps(labels: torch.Tensor, paired: torch.Tensor,
+              km: int) -> NodeMaps:
+    """The coarse fields of ``paired`` pulled through ``labels`` to the fine
+    nodes (plain gathers, as in the JAX package): a merge's leader is its
+    smaller coarse node, whose members take W's slots 0..km−1 and the
+    partner's members slots km..2km−1, by rank."""
+    ncp = paired.shape[0]
+    cnodes = torch.arange(ncp, dtype=torch.int32, device=paired.device)
+    partner_c = torch.where(paired >= 0, paired, cnodes)
+    haspair_c = (paired >= 0) & (partner_c != cnodes)
+    lead_c = torch.minimum(cnodes, partner_c)
+    rank = member_ranks(labels, km)
+    lab_ok = labels >= 0
+    safe_lab = torch.where(lab_ok, labels, 0).long()
+    lead_f = lead_c[safe_lab]
+    inpair_f = haspair_c[safe_lab] & lab_ok
+    side_f = torch.where(labels == lead_f, 0, 1)
+    slot_f = (rank + km * side_f).clamp(0, 2 * km - 1).to(torch.int32)
+    return NodeMaps(lead_c, haspair_c, lab_ok, lead_f, inpair_f, slot_f)
+
+
 def checktentagg(a0: ELL, si0: torch.Tensor, labels: torch.Tensor,
                  ac: ELL, paired: torch.Tensor, ktg: float,
                  zerors: torch.Tensor, km: int,
@@ -139,19 +173,8 @@ def checktentagg(a0: ELL, si0: torch.Tensor, labels: torch.Tensor,
     dev = paired.device
     d = 2 * km
     cnodes = torch.arange(ncp, dtype=torch.int32, device=dev)
-    partner_c = torch.where(paired >= 0, paired, cnodes)
-    haspair_c = (paired >= 0) & (partner_c != cnodes)
-    lead_c = torch.minimum(cnodes, partner_c)
-
-    # fine-side maps: the coarse fields pulled through the labels (plain
-    # gathers, as in the JAX package)
-    rank = member_ranks(labels, km)
-    lab_ok = labels >= 0
-    safe_lab = torch.where(lab_ok, labels, 0).long()
-    lead_f = lead_c[safe_lab]
-    inpair_f = haspair_c[safe_lab] & lab_ok
-    side_f = torch.where(labels == lead_f, 0, 1)
-    slot_f = (rank + km * side_f).clamp(0, d - 1).to(torch.int32)
+    lead_c, haspair_c, lab_ok, lead_f, inpair_f, slot_f = node_maps(
+        labels, paired, km)
 
     # neighbour-side maps per stored slot (K2; the bool field as bytes)
     lead_j = ops.take_neighbor(a0, lead_f)

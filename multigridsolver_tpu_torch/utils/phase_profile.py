@@ -53,14 +53,19 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile_call(fn) -> dict:
-    """One warm-up call of ``fn``, three unprofiled calls, one profiled
-    call; the device figures of the profiled call."""
+def profile_call(fn, repeats: int = 3, host_ops: bool = True) -> dict:
+    """One warm-up call of ``fn``, ``repeats`` unprofiled calls, one
+    profiled call; the device figures of the profiled call.  With
+    ``repeats=0`` (a caller that has run ``fn`` already) only the profiled
+    call, and no unprofiled wall.  ``host_ops=False`` traces the device
+    activity alone, for calls of 10⁵ kernels and more, whose host
+    operators take minutes to record."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    unprofiled = [_wall(fn)[1] for _ in range(3)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if repeats:
+        fn()
+    unprofiled = [_wall(fn)[1] for _ in range(repeats)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if host_ops else [ProfilerActivity.CUDA]) as prof:
         _, wall = _wall(fn)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -70,7 +75,8 @@ def profile_call(fn) -> dict:
         by_name[e.name][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     return dict(
-        wall_s=wall, unprofiled_wall_s=statistics.median(unprofiled),
+        wall_s=wall, unprofiled_wall_s=statistics.median(unprofiled)
+        if unprofiled else None,
         device_busy_s=_busy_us((e.time_range.start, e.time_range.end)
                                for e in kernels) * 1e-6,
         device_kernels=len(kernels),

@@ -3,9 +3,10 @@
 smoothed setups: the anchors that the PyTorch port is held to.
 
     MGS_NO_WARMSET=1 JAX_PLATFORMS=cpu python tools/quality_anchor_jax.py \
-        [--only csky_check poisson_smooth csky_notay refresh skipass] \
+        [--only csky_check poisson_smooth smooth_level0 csky_notay refresh
+                skipass] \
         [--csky-grid 80] [--poisson-grid 1000] [--smooth-grid 100] \
-        [--skipass-n 1000000] \
+        [--smooth-full-grid 500] [--skipass-n 1000000] \
         [--out tools/quality_anchor_results.json]
 
 Everything runs in float32 on the plan-free path, b = RandomState(0).rand(n)
@@ -21,11 +22,16 @@ solve settings (Chebyshev degree 2, K-cycle depth 3, pre and post 1).
   whose labels must equal the first's);
 * ``poisson_smooth``: poisson2d(100) with ``smooth_p = 2/3`` (the
   benchmark's symmetric aggregation): levels, each level's P_s and Pᵀ slot
-  width, each coarse operator's K, and the K-cycle BiCGStab count to
-  1e-6 on the weighted transfers.  Smoothing widens every coarse level
+  width, each coarse operator's K, a SHA-256 of each level's P_s, Pᵀ and
+  coarse operator (columns, then values), and the K-cycle BiCGStab count
+  to 1e-6 on the weighted transfers.  Smoothing widens every coarse level
   (P_sᵀ A P_s has slot widths 5, 22, 79, 330 at n = 10⁴), and the JAX
   package's merge SpGEMM then outgrows this machine: poisson2d(500) passed
   60 GB and poisson2d(200) 25 GB before either ended;
+* ``smooth_level0``: the first aggregation round of poisson2d(500) with
+  the benchmark's aggregation (``pairwise_aggregate``): the labels that
+  a ``smooth_p`` setup of it takes on level 0 (smoothing changes only the
+  levels below), which the card's full-size smoothed cell is held to;
 * ``csky_notay``: csky3d(80) with ``mu_mode="notay"``: levels and the
   1e-6 count;
 * ``refresh``: poisson2d(1000)'s benchmark setup refreshed for A₁ = 1.7·A +
@@ -51,8 +57,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-GROUPS = ("csky_check", "poisson_smooth", "csky_notay", "refresh",
-          "skipass")
+GROUPS = ("csky_check", "poisson_smooth", "smooth_level0", "csky_notay",
+          "refresh", "skipass")
 HIER = dict(smoother_kind="chebyshev", cycle="kcycle", pre_smooth=1,
             post_smooth=1, degree=2, kcycle_depth=3)
 CSKY_AGG = dict(ktg=10.0, npass=2, tou=8.0)
@@ -70,6 +76,14 @@ def values_hash(vals) -> str:
     import numpy as np
     return hashlib.sha256(np.ascontiguousarray(np.asarray(vals))
                           .tobytes()).hexdigest()
+
+
+def ell_hash(e) -> str:
+    """SHA-256 of an ELL's columns, then its values."""
+    import numpy as np
+    h = hashlib.sha256(np.ascontiguousarray(np.asarray(e.cols)).tobytes())
+    h.update(np.ascontiguousarray(np.asarray(e.vals)).tobytes())
+    return h.hexdigest()
 
 
 def skipass_chain(n: int):
@@ -176,11 +190,27 @@ def run_poisson_smooth(args) -> dict:
                p_k=[p.k for p in setup.p_ops],
                pt_k=[p.k for p in setup.pt_ops],
                level_k=[m.k for m in setup.matrices],
+               p_sha256=[ell_hash(p) for p in setup.p_ops],
+               pt_sha256=[ell_hash(p) for p in setup.pt_ops],
+               ops_sha256=[ell_hash(m) for m in setup.matrices[1:]],
                setup_seconds=t_setup)
     print(f"poisson_smooth {out}", flush=True)
     b = np.random.RandomState(0).rand(a.nrows)
     _, out["solve_1e6"] = solve_count(setup, b, with_p=True)
     print(f"poisson_smooth 1e-6 {out['solve_1e6']}", flush=True)
+    return out
+
+
+def run_smooth_level0(args) -> dict:
+    import jax.numpy as jnp
+    from multigridsolver_tpu.cli.generators import poisson2d
+    from multigridsolver_tpu.setup.aggregation import pairwise_aggregate
+    from multigridsolver_tpu.utils.config import AggregationConfig
+    ell = poisson2d(args.smooth_full_grid).to_ell(dtype=jnp.float32)
+    res = pairwise_aggregate(ell, AggregationConfig(**BENCH_AGG))
+    out = dict(grid=args.smooth_full_grid, nc=int(res.nc),
+               labels_sha256=labels_hash(res.labels, ell.nrows))
+    print(f"smooth_level0 {out}", flush=True)
     return out
 
 
@@ -246,6 +276,7 @@ def main() -> int:
     ap.add_argument("--csky-grid", type=int, default=80)
     ap.add_argument("--poisson-grid", type=int, default=1000)
     ap.add_argument("--smooth-grid", type=int, default=100)
+    ap.add_argument("--smooth-full-grid", type=int, default=500)
     ap.add_argument("--skipass-n", type=int, default=1000000)
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)),
@@ -254,6 +285,7 @@ def main() -> int:
     os.environ.setdefault("MGS_NO_WARMSET", "1")
     runners = dict(csky_check=run_csky_check,
                    poisson_smooth=run_poisson_smooth,
+                   smooth_level0=run_smooth_level0,
                    csky_notay=run_csky_notay, refresh=run_refresh,
                    skipass=run_skipass)
     results = {}
