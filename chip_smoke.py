@@ -104,7 +104,17 @@ Phases, each printing a line:
    quality setup profiled beside its problem's default setup; then the
    new shapes: SpGEMM's three-source K3 fetch at poisson1000 level 0 (P₀
    at M's columns, AP at Pᵀ's), K1 on P_s and Pᵀ beside cuSPARSE, and
-   checktentagg's K2 gathers at csky3d(80) level 0.
+   checktentagg's K2 gathers at csky3d(80) level 0;
+12. cli: a user's command-line session (``cli.main.main``, in process, on
+   the card, in a temporary directory) held to the JAX package's command
+   line on the CPU at full size (``tools/cli_anchor_jax.py``):
+   ``generate poisson 1000``, ``setup --f32 -v``, the greedy ``setup``
+   (the C++ host runtime ``native/mgio.cpp``, built into ``build/`` with
+   g++), ``solve --multilevel --f32``, a checkpoint of its hierarchy saved
+   and loaded, ``generate poisson 250``, ``setup``, the two-level
+   ``solve`` and ``grid_plot``'s colour matrix: file hashes, the setup
+   statistics, levels and counts, each command's wall, and the phase's
+   launches (K1, K2 and K3 each at least once).
 
 The last two lines are a JSON object with the per-kernel results (for
 ``hyb_spmv`` and ``hyb_spmv_sharded`` also the old route's time, for
@@ -115,7 +125,8 @@ shapes under ``spgemm_fetch``, ``weighted_transfers`` and
 ``checktentagg``) and the launch floor, and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
 sum of its launches in the first unsharded f32 run, the sharded run, the
-csky run, the smoothers phase and the quality phase, each counted from 0;
+csky run, the smoothers phase, the quality phase and the cli phase, each
+counted from 0;
 ``launches_by_path`` gives them apart.  Any failure exits non-zero before the result lines.  There is no CPU fallback.
 """
 from __future__ import annotations
@@ -240,6 +251,51 @@ QUALITY_EXPECT = {'csky_check': {'levels': [512000, 205358, 77038, 28813, 11206,
 # (``tools/notay_witness_torch.py``, ``tools/notay_witness_results.json``):
 # its 1e-6 counts in float32 and in float64 on the same hierarchy
 NOTAY_WITNESS = {"float32": 10, "float64": 9}
+# the JAX package's command line run on the CPU at full size
+# (``tools/cli_anchor_jax.py``, ``tools/cli_anchor_results.json``): file
+# hashes, ``setup``'s ``[info]`` lines but ``wrote``, levels and counts;
+# the port's command line must reproduce each
+CLI_GRID, CLI_SMALL_GRID = 1000, 250
+CLI_EXPECT = {'generate': {'file': 'poisson1000000.mtx',
+              'sha256': 'be277c958ef33fea9b9696cefc361cb71f06ddeee1ef0f58ad8ab66b51df3a45'},
+ 'greedy': {'info': ['[info] matrix                                     : '
+                     '1000000x1000000, nnz=4996000',
+                     '[info] AGMG round 1 completed, matrix size        : '
+                     '498002',
+                     '[info] AGMG round 2 completed, matrix size        : '
+                     '249001'],
+            'sha256': '06899b57252dcef64cafb2b65438a231aa4e5b0aa9b7a1af09467d03cbee83f9'},
+ 'multilevel': {'iterations': 6,
+                'levels': [1000000,
+                           294006,
+                           86479,
+                           25624,
+                           7535,
+                           2190,
+                           624,
+                           169]},
+ 'setup': {'info': ['[info] matrix                                     : '
+                    '1000000x1000000, nnz=4996000',
+                    '[info] AGMG round 1 completed, matrix size        : '
+                    '544556',
+                    '[info] AGMG round 2 completed, matrix size        : '
+                    '294006',
+                    '[info] coarsening                                 : '
+                    '1000000 -> 294006 (ratio 3.40)',
+                    '[info]   pass 1                                   : '
+                    'nc=544556 nnz=3292440 nnz-ratio=0.659',
+                    '[info]   pass 2                                   : '
+                    'nc=294006 nnz=1922984 nnz-ratio=0.385',
+                    '[info] pairs / singletons / excluded              : '
+                    '290114 / 3892 / 3996',
+                    '[info] pair-quality histogram (bucket k: k-1 < mu <= k) '
+                    ': 0 0 0 0 270665 0 0 0 0 0'],
+           'sha256': 'a0de088eaa61679871521c51d58cf82bcd106fbef9b6770480ee904875f8bf2e'},
+ 'two_level': {'grid_sha256': 'aa13f8911508d2bcec6545433349056aa53344da177cf753ad0472d6ea5134ec',
+               'iterations': 6,
+               'matrix_sha256': 'e3dce13f907af5adaf8a49bc5ca75ac80262cf654779394cdfc921560a0f77c4',
+               'n': 62500,
+               'promatrix_sha256': '0fae5688057ac641a88cb7c242cd9461f289300d3a056f84265e53eb9a5b28f6'}}
 SMOOTH_OMEGA = 2.0 / 3.0
 # the smoothed cell's grid: the JAX package's SpGEMM outgrows the CPU
 # sandbox that writes the anchor past about 10⁴ rows
@@ -2487,6 +2543,223 @@ def quality_shapes(device, main, checked, res) -> None:
                     " quality checktentagg verdicts")]
 
 
+def file_sha256(path: str) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+class _Tee:
+    """Writes to the real stderr and keeps a copy of the lines."""
+
+    def __init__(self, real):
+        self.real, self.parts = real, []
+
+    def write(self, s):
+        self.real.write(s)
+        self.parts.append(s)
+        return len(s)
+
+    def flush(self):
+        self.real.flush()
+
+    def isatty(self):
+        return False
+
+    def lines(self):
+        return "".join(self.parts).splitlines()
+
+
+def cli_info(lines) -> list:
+    """The ``[info]`` lines but ``wrote`` (it names the directory)."""
+    return [l for l in lines if l.startswith("[info]")
+            and not l.startswith("[info] wrote")]
+
+
+def cli_value(lines, label: str) -> str:
+    for l in lines:
+        if l.startswith("[info]") and l[7:].split(" : ")[0].strip() == label:
+            return l.split(" : ", 1)[1]
+    raise SmokeFailure(f"cli: no [info] {label} line")
+
+
+def cli_busy(cli, d: str, argv, device) -> tuple[float, int, float]:
+    """One command traced (``utils.stats.trace``): the union of its device
+    kernels' intervals in s, their count, and the traced wall in s."""
+    import torch
+    from multigridsolver_tpu_torch.utils.stats import trace
+    tdir = os.path.join(d, "trace")
+    with trace(tdir):
+        t0 = time.perf_counter()
+        cli(["--dir", d, *argv])
+        torch.cuda.synchronize(device)
+        traced = time.perf_counter() - t0
+    with open(os.path.join(tdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel" and "dur" in e)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy * 1e-6, len(spans), traced
+
+
+def phase_cli(device) -> dict:
+    """A user's command-line session on the card, in process through
+    ``cli.main.main`` in a temporary directory (removed afterwards), each
+    command held to the JAX package's command line on the CPU
+    (``CLI_EXPECT``): ``generate poisson 1000`` (the file's SHA-256),
+    ``setup --f32 -v`` (the promatrix's SHA-256 and the ``[info]`` lines:
+    per-pass nc / nnz, pairs / singletons / excluded, histogram), the
+    greedy ``setup`` (SHA-256, pass sizes), ``solve --multilevel --f32``
+    (levels, count, status 0, relres < 1e-6), then ``generate poisson
+    250``, ``setup``, the two-level ``solve`` (hashes, count) and the
+    colour matrix of ``grid_plot`` (SHA-256); the multilevel hierarchy
+    saved and loaded (``utils/serialization``) solves in the same count
+    with x bitwise.  Every command runs on the card (the CLI's default
+    device), through the C++ host runtime and the kernels.  Returns the
+    phase's launch counts (set to 0 at its start)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.cli.gridplot import grid_plot
+    from multigridsolver_tpu_torch.cli.main import main as cli
+    from multigridsolver_tpu_torch.io import native
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.solve.api import solve_hierarchy
+    from multigridsolver_tpu_torch.utils.serialization import (
+        load_hierarchy, save_hierarchy)
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.get_lib()
+    log(f"cli: libmgio {os.path.relpath(lib, HERE)} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    name = f"poisson{CLI_GRID * CLI_GRID}"
+    small = f"poisson{CLI_SMALL_GRID * CLI_SMALL_GRID}"
+    d = tempfile.mkdtemp(prefix="mgs_cli_")
+    walls = {}
+
+    def run(*argv):
+        tee = _Tee(sys.stderr)
+        t0 = time.perf_counter()
+        old, sys.stderr = sys.stderr, tee
+        try:
+            out = cli(["--dir", d, *argv])
+        except SystemExit as e:
+            raise SmokeFailure(f"cli {' '.join(argv)}: exit {e.code}")
+        finally:
+            sys.stderr = old
+        torch.cuda.synchronize(device)
+        walls[" ".join(argv)] = time.perf_counter() - t0
+        log(f"cli: {' '.join(argv)}: wall {walls[' '.join(argv)]!r} s")
+        return out, tee.lines()
+
+    def sha(fname: str, want: str, what: str) -> None:
+        got = file_sha256(os.path.join(d, fname))
+        log(f"cli: {what} {fname} sha256 {got}")
+        check(got == want, f"cli: {what} {fname} sha256 {got} != the JAX "
+                           f"command line's {want}")
+
+    def info_equal(lines, want, what):
+        got = cli_info(lines)
+        check(got == want, f"cli: {what} [info] lines differ from the JAX "
+                           f"command line's:\n{got}\n{want}")
+
+    try:
+        g.reset_launch_counts()
+        with g.launch_shapes() as shapes:
+            run("generate", "poisson", str(CLI_GRID))
+            sha(f"{name}.mtx", CLI_EXPECT["generate"]["sha256"], "matrix")
+            _, lines = run("setup", name, "--f32", "-v")
+            sha(f"{name}promatrix_torch.mtx", CLI_EXPECT["setup"]["sha256"],
+                "mutual promatrix")
+            info_equal(lines, CLI_EXPECT["setup"]["info"], "setup -v")
+            _, lines = run("setup", name, "--f32", "--matching", "greedy",
+                           "--tag", "greedy")
+            sha(f"{name}promatrix_greedy.mtx",
+                CLI_EXPECT["greedy"]["sha256"], "greedy promatrix")
+            info_equal(lines, CLI_EXPECT["greedy"]["info"], "greedy setup")
+            (hier, sres), lines = run("solve", name, "--multilevel", "--f32")
+            want = CLI_EXPECT["multilevel"]
+            levels = json.loads(cli_value(lines, "levels"))
+            relres = float(cli_value(lines, "Tolerance"))
+            log(f"cli: multilevel levels {levels}, {int(sres.iterations)} "
+                f"iterations, relres {relres!r}, status {int(sres.status)}")
+            check(levels == want["levels"], f"cli: levels {levels} != "
+                                            f"{want['levels']}")
+            check(int(sres.status) == 0 and relres < 1e-6,
+                  f"cli: multilevel status {int(sres.status)}, relres "
+                  f"{relres}")
+            check(int(sres.iterations) == want["iterations"],
+                  f"cli: multilevel {int(sres.iterations)} iterations != "
+                  f"{want['iterations']}")
+            check(hier.levels[0].a.dvals.is_cuda,
+                  "cli: the hierarchy is not on the card")
+            # the checkpoint round trip: the same count, x bitwise
+            ckpt = os.path.join(d, f"{name}_hierarchy.npz")
+            t0 = time.perf_counter()
+            save_hierarchy(ckpt, hier)
+            t1 = time.perf_counter()
+            back = load_hierarchy(ckpt, device=device)
+            torch.cuda.synchronize(device)
+            t2 = time.perf_counter()
+            b = np.random.RandomState(0).rand(CLI_GRID * CLI_GRID)
+            again = solve_hierarchy(back, b, tol=1e-6, maxiter=10000)
+            same = torch.equal(again.x, sres.x)
+            log(f"cli: checkpoint {os.path.getsize(ckpt)} bytes, save "
+                f"{t1 - t0!r} s, load {t2 - t1!r} s; reloaded solve "
+                f"{int(again.iterations)} iterations, x bitwise {same}")
+            check(int(again.iterations) == int(sres.iterations) and same,
+                  "cli: the reloaded hierarchy solves otherwise")
+            want = CLI_EXPECT["two_level"]
+            run("generate", "poisson", str(CLI_SMALL_GRID))
+            sha(f"{small}.mtx", want["matrix_sha256"], "matrix")
+            run("setup", small, "--f32")
+            sha(f"{small}promatrix_torch.mtx", want["promatrix_sha256"],
+                "promatrix")
+            (_, tres), _ = run("solve", small, "--f32")
+            log(f"cli: two-level {small} {int(tres.iterations)} iterations, "
+                f"relres {float(tres.relres)!r}")
+            check(int(tres.iterations) == want["iterations"],
+                  f"cli: two-level {int(tres.iterations)} iterations != "
+                  f"{want['iterations']}")
+            t0 = time.perf_counter()
+            grid_plot(os.path.join(d, f"{small}.mtx"),
+                      os.path.join(d, f"{small}promatrix_torch.mtx"),
+                      out_png=None,
+                      out_mtx=os.path.join(d, f"{small}grid_torch.mtx"))
+            walls["grid_plot"] = time.perf_counter() - t0
+            log(f"cli: grid_plot {small}: wall {walls['grid_plot']!r} s")
+            sha(f"{small}grid_torch.mtx", want["grid_sha256"], "colours")
+        counts = g.launch_counts()
+        # the device's share of two commands' walls: each once more under
+        # utils.stats.trace (torch.profiler), its kernels' union over the
+        # untraced wall
+        for argv in (("setup", name, "--f32", "-v"),
+                     ("solve", name, "--multilevel", "--f32")):
+            key = " ".join(argv)
+            busy, kernels, traced = cli_busy(cli, d, argv, device)
+            log(f"cli: {key}: device busy {busy!r} s over {kernels} "
+                f"kernels, {busy / walls[key]:.4f} of the untraced wall "
+                f"{walls[key]!r} s (traced wall {traced!r} s)")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"cli launches: {json.dumps(counts)}")
+    log_shapes(shapes)
+    for name_k in ("gather_spmv", "hyb_spmv", "take", "take_rows",
+                   "take_rows_many"):
+        check(counts[name_k] > 0,
+              f"kernel {name_k} was not launched by the cli phase")
+    log(f"cli walls: {json.dumps(walls)}")
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: {PKG}/ not found beside this script",
@@ -2511,9 +2784,10 @@ def main() -> int:
         phase_csky_hyb(device, csky, kres)
         smoothers = phase_smoothers(device, unsharded, csky, kres)
         quality = phase_quality(device, unsharded, csky, kres)
+        cli = phase_cli(device)
         by_path = {"unsharded": unsharded["launches"], "sharded": sharded,
                    "csky": csky["launches"], "smoothers": smoothers,
-                   "quality": quality}
+                   "quality": quality, "cli": cli}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -15,17 +15,21 @@ level's P smoothed and its operator the triple product P_sᵀ A P_s;
 ``refresh_setup`` reuses a setup's aggregation for new values on the
 same pattern.  The host reads back ``nc`` per pass, ``nnz``/max degree
 per Galerkin product and one flag per matching round; everything else
-stays on the device.
+stays on the device.  ``matching="greedy"`` (the reference CPU
+algorithm) takes float64 strength on the device and matches on the host,
+in the C++ runtime (:func:`_greedy_pass`).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from ..sparse.formats import ELL
 from ..utils.config import AggregationConfig, HierarchyConfig
+from ..utils.timing import PhaseTimer
 from .galerkin import galerkin_ell, galerkin_pair_ell
 from .matching import labels_from_pairs, mutual_match
 from .prolongation import compose_labels
@@ -67,12 +71,65 @@ class SetupResult:
     smooth_omega: float | None = None
 
 
+MATCHINGS = ("mutual", "greedy")
+
+
 def _check_supported(cfg: AggregationConfig) -> None:
-    if cfg.matching != "mutual":
-        raise NotImplementedError(
-            f"matching={cfg.matching!r} is not ported: the greedy matching "
-            "and its CMK order run in native/libmgio.so, which comes with "
-            "the io slice")
+    if cfg.matching not in MATCHINGS:
+        raise ValueError(f"unknown matching {cfg.matching!r}; one of "
+                         f"{MATCHINGS}")
+
+
+def paired_from_labels_host(labels_np: np.ndarray) -> np.ndarray:
+    """The pair array of pairwise labels (host): the two members of a
+    label are each other's partners, a singleton is its own, an excluded
+    node (−1) has none (−1)."""
+    n = labels_np.shape[0]
+    paired = np.full(n, -1, np.int64)
+    order = np.argsort(labels_np, kind="stable")
+    lab_sorted = labels_np[order]
+    first = np.ones(n, bool)
+    first[1:] = lab_sorted[1:] != lab_sorted[:-1]
+    starts = np.flatnonzero(first)
+    sizes = np.diff(np.append(starts, n))
+    real = lab_sorted[starts] >= 0
+    if (sizes[real] > 2).any():
+        raise ValueError("labels are not pairwise")
+    single = order[starts[real & (sizes == 1)]]
+    paired[single] = single
+    lead = starts[real & (sizes == 2)]
+    paired[order[lead]] = order[lead + 1]
+    paired[order[lead + 1]] = order[lead]
+    return paired
+
+
+def _greedy_pass(a: ELL, first_pass: bool, cfg: AggregationConfig):
+    """One pass of the reference CPU algorithm: float64 strength on the
+    device (on ``a``'s values; a carried ``vals_t`` enters as it is), the
+    CSR, G0 exclusions, diagonal and sᵢ copied to the host, then the CMK
+    order (first pass; index order after) and the exact sequential greedy
+    matching in the C++ runtime.  Returns (paired, labels, nc), the
+    labels (npad,) int32 back on ``a``'s device."""
+    from ..io.native import cmk_order_native, greedy_pass_native
+    csr = a.to_csr()
+    n = csr.nrows
+    st = compute_strength(dataclasses.replace(a, vals=a.vals.double()),
+                          cfg.ktg, first_pass, checkdd=cfg.checkdd,
+                          trspos=cfg.trspos, fracnegrcsum=cfg.fracnegrcsum)
+    excluded = st.excluded[:n].cpu().numpy()
+    si = st.si[:n].cpu().numpy()
+    diag = st.diag[:n].cpu().numpy()
+    if first_pass:
+        order = cmk_order_native(csr, genuine=cfg.cmk_mode == "genuine")
+    else:
+        order = np.arange(n)
+    labels_np = np.full(a.npad, -1, np.int32)
+    labels_np[:n] = greedy_pass_native(csr, diag, si, excluded, order,
+                                       cfg.ktg)
+    nc = int(labels_np.max()) + 1 if (labels_np >= 0).any() else 0
+    paired = torch.from_numpy(paired_from_labels_host(labels_np)
+                              .astype(np.int32)).to(a.device)
+    return paired, torch.from_numpy(labels_np).to(a.device), nc
 
 
 def match_pass(a: ELL, first_pass: bool, cfg: AggregationConfig):
@@ -117,21 +174,31 @@ def match_pass_checked(mat: ELL, a0: ELL, si0: torch.Tensor,
 
 
 def pairwise_aggregate(a: ELL, cfg: AggregationConfig,
-                       nnz0: int | None = None) -> AggregationResult:
+                       nnz0: int | None = None,
+                       timer: PhaseTimer | None = None) -> AggregationResult:
     """One setup round: ``cfg.npass`` pairwise passes over ``a`` (one more
     when skipass fired).  ``nnz0``: the host-known nnz of ``a`` (read from
-    the device if None)."""
+    the device if None); ``timer`` times each pass as
+    ``aggregation.pass<s>``.  The greedy matching takes neither
+    checktentagg nor skipass (as in the JAX package)."""
     _check_supported(cfg)
+    timer = timer or PhaseTimer(enabled=False)
+    greedy = cfg.matching == "greedy"
     if nnz0 is None:
         nnz0 = a.nnz
 
-    paired, labels, nc, st = match_pass(a, True, cfg)
-    extra = 0
-    if cfg.skipass_frac > 0.0:
-        # skipass fired: pass 1 paired nothing; one extra pass compensates
-        nodes = torch.arange(a.npad, dtype=torch.int32, device=a.device)
-        extra = int(((paired < 0) | (paired == nodes)).all())
-    ac, nnz_c = galerkin_pair_ell(a, paired, labels, nc)
+    with timer.phase("aggregation.pass1"):
+        if greedy:
+            paired, labels, nc = _greedy_pass(a, True, cfg)
+        else:
+            paired, labels, nc, st = match_pass(a, True, cfg)
+        extra = 0
+        if cfg.skipass_frac > 0.0 and not greedy:
+            # skipass fired: pass 1 paired nothing; one extra pass
+            # compensates
+            nodes = torch.arange(a.npad, dtype=torch.int32, device=a.device)
+            extra = int(((paired < 0) | (paired == nodes)).all())
+        ac, nnz_c = galerkin_pair_ell(a, paired, labels, nc)
     cum_labels = labels
     passes = [PassInfo(nc=nc, nnz=nnz_c)]
     for s in range(2, cfg.npass + extra + 1):
@@ -141,12 +208,15 @@ def pairwise_aggregate(a: ELL, cfg: AggregationConfig,
             break
         km = 2 ** (s - 1)
         checks = None
-        if cfg.check_tentagg and km <= 8 and a.npad % 1024 == 0:
-            paired, pass_labels, nc, checks = match_pass_checked(
-                ac, a, st.si, cum_labels, st.zerors, cfg, km)
-        else:
-            paired, pass_labels, nc, _ = match_pass(ac, False, cfg)
-        ac, nnz_c = galerkin_pair_ell(ac, paired, pass_labels, nc)
+        with timer.phase(f"aggregation.pass{s}"):
+            if greedy:
+                paired, pass_labels, nc = _greedy_pass(ac, False, cfg)
+            elif cfg.check_tentagg and km <= 8 and a.npad % 1024 == 0:
+                paired, pass_labels, nc, checks = match_pass_checked(
+                    ac, a, st.si, cum_labels, st.zerors, cfg, km)
+            else:
+                paired, pass_labels, nc, _ = match_pass(ac, False, cfg)
+            ac, nnz_c = galerkin_pair_ell(ac, paired, pass_labels, nc)
         cum_labels = compose_labels(cum_labels, pass_labels)
         passes.append(PassInfo(nc=nc, nnz=nnz_c, checks=checks))
     return AggregationResult(labels=cum_labels, nc=nc, coarse=ac,

@@ -9,9 +9,15 @@ repeat until a round accepts nothing; leftovers become singletons.
 μ(i,j) is bitwise symmetric (strength.py) and the tie-break key is a
 function of the unordered edge, so the result is deterministic.  The loop
 reads one flag per round from the device.
+
+The reference CPU algorithm, an exact sequential greedy matching in CMK
+priority order, runs on the host: in C++ (``io/native.py``) on the setup
+path, and here as its numpy twins (:func:`greedy_match_host`,
+:func:`cmk_order_host`, :func:`cmk_order_genuine_host`).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..sparse import ops
@@ -118,3 +124,141 @@ def labels_from_pairs(paired: torch.Tensor, excluded: torch.Tensor,
     labels = torch.where(leader, agg_of_leader, agg_of_partner)
     labels = torch.where(active, labels, -1).to(torch.int32)
     return labels, int(leader.sum())
+
+
+def greedy_match_host(a_csr, ktg: float, first_pass_excluded: np.ndarray,
+                      si: np.ndarray, order: np.ndarray | None = None
+                      ) -> np.ndarray:
+    """Exact sequential greedy matching (numpy, float64) in the given
+    priority order: every node in turn takes its available neighbour of
+    least μ in (0, ktg] that passes aᵢᵢ − sᵢ + aⱼⱼ − sⱼ ≥ 0, or stays a
+    singleton.  ``a_csr``: host CSR.  Returns labels (n,) int32 (−1 =
+    excluded)."""
+    n = a_csr.nrows
+    indptr, indices, data = a_csr.indptr, a_csr.indices, a_csr.data
+    dense_diag = np.zeros(n)
+    for i in range(n):
+        for k in range(indptr[i], indptr[i + 1]):
+            if indices[k] == i:
+                dense_diag[i] = data[k]
+
+    def coeff(i, j):
+        lo, hi = indptr[i], indptr[i + 1]
+        pos = np.searchsorted(indices[lo:hi], j)
+        if pos < hi - lo and indices[lo + pos] == j:
+            return data[lo + pos]
+        return 0.0
+
+    if order is None:
+        order = cmk_order_host(a_csr)
+    in_u = ~first_pass_excluded.astype(bool).copy()
+    labels = np.full(n, -1, np.int32)
+    nc = 0
+    for i in order:
+        if not in_u[i]:
+            continue
+        best_j, best_mu = -1, np.inf
+        for k in range(indptr[i], indptr[i + 1]):
+            j = indices[k]
+            if j == i or not in_u[j]:
+                continue
+            aij = data[k]
+            if aij == 0.0:
+                continue
+            aii, ajj = dense_diag[i], dense_diag[j]
+            if aii - si[i] + ajj - si[j] < 0:
+                continue
+            aji = coeff(j, i)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                num = 2.0 / (1.0 / aii + 1.0 / ajj)
+                den = (-(aij + aji) / 2.0
+                       + 1.0 / (1.0 / (aii - si[i]) + 1.0 / (ajj - si[j])))
+                mu = num / den
+            if mu > 0.0 and mu < best_mu:
+                best_j, best_mu = j, mu
+        if best_j != -1 and best_mu <= ktg:
+            labels[i] = nc
+            labels[best_j] = nc
+            in_u[i] = in_u[best_j] = False
+        else:
+            labels[i] = nc
+            in_u[i] = False
+        nc += 1
+    return labels
+
+
+def cmk_order_host(a_csr) -> np.ndarray:
+    """BFS visitation order from node 0, the reference's simplified "CMK"
+    (no degree sort, no reversal); unreached nodes restart the search, so
+    the order covers every node where the reference asserts
+    connectivity."""
+    n = a_csr.nrows
+    indptr, indices = a_csr.indptr, a_csr.indices
+    visited = np.zeros(n, dtype=bool)
+    order = np.empty(n, dtype=np.int64)
+    cnt = 0
+    for start in range(n):
+        if visited[start]:
+            continue
+        visited[start] = True
+        order[cnt] = start
+        cnt += 1
+        head = cnt - 1
+        while head < cnt:
+            u = order[head]
+            head += 1
+            for k in range(indptr[u], indptr[u + 1]):
+                v = indices[k]
+                if not visited[v]:
+                    visited[v] = True
+                    order[cnt] = v
+                    cnt += 1
+    return order
+
+
+def cmk_order_genuine_host(a_csr) -> np.ndarray:
+    """Genuine Cuthill-McKee, the Fortran's rule: degree-1 nodes first
+    (index order), minimum-degree start, each BFS front's new neighbours
+    appended in ascending-degree (stable) order, reducible restarts from
+    the next unnumbered node of progressively relaxed minimal degree.  No
+    reversal: AGMG uses plain CMK."""
+    n = a_csr.nrows
+    indptr, indices = a_csr.indptr, a_csr.indices
+    deg = np.diff(indptr)
+    order = np.empty(n, dtype=np.int64)
+    numbered = np.zeros(n, dtype=bool)
+    ones = np.flatnonzero(deg <= 1)
+    order[: len(ones)] = ones
+    numbered[ones] = True
+    i2 = len(ones)
+    if i2 >= n:
+        return order
+    rest = np.flatnonzero(deg > 1)
+    jj = rest[np.argmin(deg[rest])]
+    mindg = deg[jj]
+    ijs = -1
+    while True:
+        order[i2] = jj
+        numbered[jj] = True
+        i2 += 1
+        i1 = i2 - 1
+        while i1 < i2 and i2 < n:
+            u = order[i1]
+            nbrs = indices[indptr[u]: indptr[u + 1]]
+            new = [v for v in nbrs if v != u and not numbered[v]]
+            new.sort(key=lambda v: deg[v])        # stable ascending degree
+            for v in new:
+                order[i2] = v
+                numbered[v] = True
+                i2 += 1
+            i1 += 1
+        if i2 >= n:
+            return order
+        jj = -1
+        while jj < 0:
+            ijs += 1
+            if ijs >= n:
+                mindg += 1
+                ijs = 0
+            if not numbered[ijs] and deg[ijs] == mindg:
+                jj = ijs

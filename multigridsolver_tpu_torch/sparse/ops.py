@@ -288,6 +288,20 @@ def symmetrized_offdiag_sums(a: ELL, vals_t: torch.Tensor | None = None,
     return _scatter_cols(a, lone, abs_from_rows), plain
 
 
+def get_element(a: ELL, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """Random element access A[i, j], elementwise over index tensors of
+    one shape (0 where (i, j) is not stored).  An index gather on whole
+    slot columns, as in the JAX package (an XLA take there, no Pallas
+    kernel)."""
+    cols_i = a.cols[:, i]                     # (K, ...)
+    vals_i = a.vals[:, i]
+    nnz_i = a.rownnz[i]
+    sl = torch.arange(a.k, dtype=torch.int32, device=a.device)
+    sl = sl.reshape((a.k,) + (1,) * i.dim())
+    hit = (cols_i == j[None, ...]) & (sl < nnz_i[None, ...])
+    return torch.where(hit, vals_i, 0.0).sum(0)
+
+
 def to_dense(a: ELL) -> torch.Tensor:
     """(nrows, ncols) dense materialisation (small matrices only)."""
     out = torch.zeros((a.npad, a.ncols), dtype=a.vals.dtype, device=a.device)

@@ -166,13 +166,23 @@ def test_build_amg_setup_levels_and_labels(ref, dt):
 
 
 def test_unported_options_raise():
-    """Only the greedy matching is refused (it comes with the io slice);
-    the quality options run (held to the JAX package in
+    """Every option is ported: the greedy matching runs (in the C++ host
+    runtime) and gives the JAX package's labels, an unknown matching is
+    refused, and the quality options run (held to the JAX package in
     ``test_torch_tentagg.py`` and ``test_torch_strength_modes.py``)."""
-    ell = to_port(poisson2d(8).to_ell(dtype=jnp.float64))
-    with pytest.raises(NotImplementedError, match="io slice"):
+    jell = poisson2d(8).to_ell(dtype=jnp.float64)
+    ell = to_port(jell)
+    greedy = {**AGG, "matching": "greedy"}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MGS_NO_WARMSET", "1")
+        want = jagg.pairwise_aggregate(jell, AggregationConfig(**greedy))
+    got = tagg.pairwise_aggregate(ell, tcfg.AggregationConfig(**greedy))
+    np.testing.assert_array_equal(got.labels.numpy(),
+                                  np.asarray(want.labels))
+    assert got.nc == want.nc > 0
+    with pytest.raises(ValueError, match="unknown matching"):
         tagg.pairwise_aggregate(
-            ell, tcfg.AggregationConfig(**{**AGG, "matching": "greedy"}))
+            ell, tcfg.AggregationConfig(**{**AGG, "matching": "random"}))
     for ok in (dict(check_tentagg=True), dict(skipass_frac=0.5),
                dict(mu_mode="notay")):
         assert tagg.pairwise_aggregate(
