@@ -53,6 +53,24 @@ Phases, each printing a line:
    exchange), bitwise against its plain version and the route it replaced
    (ring halos, torch lane loop, K1 per shard), timed beside them, the
    whole ``HaloOp.spmv``, cuSPARSE on the same operator and its bound;
+7b. multicard: the same f32 problem over two ranks of two shards each
+   (two processes of this script, ``--multicard-rank``, joined over
+   ``torch.distributed``: NCCL with one rank per card where there are two
+   cards, else both ranks on cuda:0 over gloo, which stages its send/recv
+   through host memory; the transport is printed), each rank holding only
+   its own rows of the sharded levels: ``build_amg_setup_sharded`` →
+   ``gather_setup`` → ``build_hierarchy`` → ``shard_hierarchy`` (two
+   levels) → ``solve_hierarchy``, held to the unsharded run (levels,
+   labels bitwise, 8 iterations, relres, the f32 true-residual floor),
+   the replicated levels hashed alike on both ranks, K4, the halo fill
+   and the sharded SpMV launched on each rank and bitwise their plain
+   versions on its local block with the received halo (timed on rank 0
+   beside their plain versions, library calls and bounds), the bytes
+   each rank hands the transport per SpMV of levels 0 and 1, and the
+   walls beside the one-process sharded ones; a rank that fails or
+   outlives its timeout fails the run.  ``python3 chip_smoke.py
+   --multicard-only`` runs the main path and this phase alone, with as
+   many ranks as cards;
 8. nonsymmetric cell: csky3d(80) (n = 512,000) through ``to_ell`` with the
    transposed-value field → ``build_amg_setup`` (union strength, the field
    as K3's fourth source) → ``build_hierarchy`` → ``solve_refined`` to
@@ -125,8 +143,10 @@ shapes under ``spgemm_fetch``, ``weighted_transfers`` and
 ``checktentagg``) and the launch floor, and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
 sum of its launches in the first unsharded f32 run, the sharded run, the
-csky run, the smoothers phase, the quality phase and the cli phase, each
-counted from 0;
+multicard run (both ranks), the csky run, the smoothers phase, the
+quality phase and the cli phase, each counted from 0 (K4's, the halo
+fill's and the sharded SpMV's ``rank_block`` their times on a rank's
+block);
 ``launches_by_path`` gives them apart.  Any failure exits non-zero before the result lines.  There is no CPU fallback.
 """
 from __future__ import annotations
@@ -1238,7 +1258,7 @@ def phase_sharded(device, a, unsharded) -> dict:
     log("sharded vs unsharded f32 seconds (second unsharded run): "
         + " ".join(f"{k}={v:.4f}/{warm.get(k, 0.0):.4f}"
                    for k, v in times.items()))
-    return counts, hier_sh
+    return counts, hier_sh, times
 
 
 def old_sharded_route(op, x):
@@ -1329,6 +1349,355 @@ def phase_sharded_spmv(device, hier_sh, unsharded, res) -> None:
                lambda: torch.mv(csr, x), nbytes, 2 * entries,
                extra={"old_route_ms": lambda: old_sharded_route(op, x),
                       "op_spmv_ms": lambda: op.spmv(x)})
+
+
+# the multicard phase: the main path's poisson1000 f32 over two ranks of
+# two shards each (the four shards of the one-process sharded phase)
+MULTICARD_RANKS = 2
+MULTICARD_SHARDS_PER_RANK = 2
+MULTICARD_ITERATIONS = 8
+MULTICARD_TIMEOUT_S = 420
+MULTICARD_KERNELS = ("take_sharded", "halo_fill", "hyb_spmv_sharded")
+
+
+def multicard_transport(ranks: int) -> tuple[str, list[str], str]:
+    """The backend and each rank's card, chosen explicitly: NCCL with one
+    rank per card where there are that many cards, else every rank on
+    cuda:0 over gloo."""
+    import torch
+    from multigridsolver_tpu_torch.parallel.multihost import GLOO_STAGED
+    if torch.cuda.device_count() >= ranks:
+        return ("nccl", [f"cuda:{r}" for r in range(ranks)],
+                "one rank per card")
+    return ("gloo", ["cuda:0"] * ranks,
+            "one card: NCCL refuses two ranks on one card, so the ranks "
+            "share cuda:0 over gloo; every kernel still runs on the card, "
+            f"and gloo's {sorted(GLOO_STAGED)} (send/recv, which gloo "
+            "refuses on CUDA tensors) is staged through host memory")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_multicard(unsharded, sharded_times, res,
+                    ranks: int = MULTICARD_RANKS,
+                    spr: int = MULTICARD_SHARDS_PER_RANK) -> dict:
+    """The main path over ranks: two rank processes of this script, joined
+    over ``torch.distributed`` (``multicard_rank``; ``ranks`` of ``spr``
+    shards each can be asked for), run poisson1000 f32
+    through ``build_amg_setup_sharded`` → ``gather_setup`` →
+    ``build_hierarchy`` → ``shard_hierarchy`` (two levels) →
+    ``solve_hierarchy`` on a mesh of two shards per rank.  Held to the
+    unsharded run: levels, labels bitwise on every level, the iteration
+    count, relres and the float32 true-residual floor; the replicated
+    levels identical on both ranks; K4, the halo fill and the sharded SpMV
+    launched on each rank and bitwise their plain versions on its local
+    block.  A rank that fails or outlives the timeout fails the phase.
+    Returns the launch counts of both ranks' main path, summed."""
+    import tempfile
+    import numpy as np
+    import torch
+    backend, devices, why = multicard_transport(ranks)
+    log(f"multicard transport: {backend} over {ranks} ranks x {spr} "
+        f"shards, devices {devices} ({why})")
+    out_dir = tempfile.mkdtemp(prefix="mgs_multicard_")
+    port = free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for r, dev in enumerate(devices):
+        env = dict(os.environ, PYTHONPATH=HERE,
+                   MGS_COORDINATOR=f"tcp://127.0.0.1:{port}",
+                   MGS_NUM_PROCESSES=str(ranks), MGS_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multicard-rank",
+             out_dir, backend, dev, str(spr)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, env=env, text=True))
+    outs = []
+    try:
+        for p in procs:
+            left = MULTICARD_TIMEOUT_S - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(left, 1.0))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise SmokeFailure(f"multicard: a rank outlived "
+                           f"{MULTICARD_TIMEOUT_S} s; both were stopped")
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            log(f"[rank {r}] {line}")
+        check(p.returncode == 0, f"multicard: rank {r} exited "
+              f"{p.returncode}")
+    docs = []
+    for r in range(ranks):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            docs.append(json.load(f))
+    whole = torch.load(os.path.join(out_dir, "whole.pt"))
+    tag = f"multicard float32 {ranks} ranks x {spr} shards ({backend})"
+    for rk in docs:
+        log(f"{tag} rank {rk['rank']}: {rk['transport']}; device "
+            f"{rk['device']} ({rk['device_name']})")
+        check(rk["levels"] == EXPECT_LEVELS,
+              f"{tag}: levels {rk['levels']} differ from {EXPECT_LEVELS}")
+        check(rk["status"] == 0 and rk["relres"] < 1e-6,
+              f"{tag}: rank {rk['rank']} status {rk['status']} relres "
+              f"{rk['relres']}")
+        check(rk["iterations"] == unsharded["iterations"]
+              == MULTICARD_ITERATIONS,
+              f"{tag}: {rk['iterations']} iterations, the unsharded run "
+              f"took {unsharded['iterations']}, expected "
+              f"{MULTICARD_ITERATIONS}")
+        counts = rk["launches"]
+        log(f"{tag} rank {rk['rank']} launches: {json.dumps(counts)}")
+        for name in MULTICARD_KERNELS:
+            check(counts[name] > 0, f"{tag}: {name} was not launched on "
+                  f"rank {rk['rank']}")
+        check(counts["halo_fill"] == counts["take_sharded"]
+              + counts["hyb_spmv_sharded"],
+              f"{tag}: rank {rk['rank']}: {counts['halo_fill']} halo fills "
+              f"for {counts['take_sharded']} K4 gathers and "
+              f"{counts['hyb_spmv_sharded']} sharded SpMVs")
+        log(f"{tag} rank {rk['rank']} bytes handed to the transport, "
+            f"setup and solve: {json.dumps(rk['sent'])}")
+        for lvl, sent in enumerate(rk["spmv_bytes"]):
+            log(f"{tag} rank {rk['rank']} level {lvl} SpMV: bytes sent "
+                f"per SpMV (measured) {json.dumps(sent)}")
+    digests = {rk["digest"] for rk in docs}
+    check(len(digests) == 1, f"{tag}: the replicated levels differ "
+          f"between ranks: {digests}")
+    log(f"{tag} replicated levels: one SHA-256 on every rank "
+        f"({digests.pop()[:16]}...)")
+    n = unsharded["problem"].nrows
+    for lvl, (mine, ref) in enumerate(zip(whole["labels"],
+                                          unsharded["labels"])):
+        check(torch.equal(mine[:n], ref[:n]),
+              f"{tag}: level {lvl} labels differ from the unsharded run")
+        n = int(ref.max()) + 1
+    log(f"{tag} labels: bitwise equal to the unsharded run on every "
+        "level's logical rows")
+    a_sp, b = unsharded["a_sp"], unsharded["b"]
+    x = whole["x"].double().numpy()
+    check(bool(np.isfinite(x).all()) and x.shape == (a_sp.shape[0],),
+          f"{tag}: the solution is not finite or has the wrong shape")
+    nb = np.linalg.norm(b)
+    true_res = float(np.linalg.norm(b - a_sp @ x) / nb)
+    floor = float(torch.finfo(torch.float32).eps / 2
+                  * np.linalg.norm(abs(a_sp) @ np.abs(x)) / nb)
+    log(f"{tag} solve: iterations={docs[0]['iterations']} "
+        f"relres={docs[0]['relres']!r} true_relres={true_res!r} "
+        f"storage_floor={floor!r}")
+    check(true_res < 1e-5 + 2 * floor,
+          f"{tag}: true residual {true_res} >= 1e-5 + 2 * {floor}")
+    for rk in docs:
+        log(f"{tag} rank {rk['rank']} vs one-process sharded seconds: "
+            + " ".join(f"{k}={v:.4f}/{sharded_times.get(k, float('nan')):.4f}"
+                       for k, v in rk["times"].items()))
+    log(f"{tag}: phase wall {wall:.3f} s (the ranks' starts included)")
+    for name, recs in docs[0]["kernels"].items():
+        res.setdefault(name, {"max_abs_err": 0.0})["rank_block"] = recs
+    return {name: sum(rk["launches"][name] for rk in docs)
+            for name in docs[0]["launches"]}
+
+
+def multicard_kernels(mesh, fine, hs, mats, timing: bool) -> dict:
+    """K4, the halo fill and the sharded SpMV on this rank's local block,
+    with the halo and exchange buffers received from the other rank, each
+    bitwise against its plain version on the same inputs and the halo
+    against the whole vector's; on rank 0 (``timing``) each timed beside
+    its plain version, its library yardstick (the sharded SpMV's: cuSPARSE
+    on this rank's rows of the level's whole ELL ``mats[lvl]``, reading
+    the whole x) and its bound, while the other rank waits."""
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.parallel import halo_width, repad_ell
+    from multigridsolver_tpu_torch.parallel.exchange import exchange_recv
+    rs = np.random.RandomState(3 + mesh.rank)
+    _, npr, h = fine.shard
+    nl, first = mesh.nlocal, mesh.first_shard
+    mine = slice(first, first + nl)
+    dev = fine.device
+    x = torch.from_numpy(rs.rand(fine.npad)).to(dev, torch.float32)
+    lo, hi = mesh.row_halo(x, h)
+    halo = g.halo_fill(x, nl, h, lo, hi)
+    check_bits(halo, g.halo_fill_plain(x, nl, h, lo, hi),
+               "halo_fill on a rank's block")
+    whole = mesh.all_gather(x.view(nl, -1))
+    check_bits(halo, g.halo_fill_plain(whole, mesh.ndev, h)[mine],
+               "the received halo against the whole vector's")
+    idx, r0 = fine.cols, fine.row0
+    valid = fine.slot_mask()
+    out = g.take_sharded(idx, x, halo, npr, h, base=r0)
+    check_bits(out, g.take_sharded_plain(idx, x, halo, npr, h, r0),
+               "K4 on a rank's block")
+    check(torch.equal(torch.where(valid, out, 0.0),
+                      torch.where(valid, whole[idx.long()], 0.0)),
+          "K4 on a rank's block differs from a gather from the whole x")
+    flags = x < 0.5
+    fhalo = mesh.boundary_halo(flags, h)
+    check_bits(g.take_sharded(idx, flags, fhalo, npr, h, base=r0),
+               g.take_sharded_plain(idx, flags, fhalo, npr, h, r0),
+               "K4 on a bool field on a rank's block")
+    spmvs = []
+    for lvl in (1, 0):
+        op = hs.levels[lvl].a
+        w = halo_width(op.a)
+        xv = torch.from_numpy(rs.rand(op.npad)).to(dev, torch.float32)
+        hv = mesh.boundary_halo(xv, w) if w else None
+        route, recv = op.route, None
+        if op.ex_L:
+            recv = exchange_recv(xv.view(nl, -1), op.ex_send_idx, mesh)
+        elif route == "all_gather":
+            recv = mesh.all_gather(xv.view(nl, -1)).expand(nl, -1) \
+                .contiguous()
+            route = "exchange"
+        args = (op.a.dvals, op.a.lanes, xv, nl)
+        kw = dict(halo=hv, cols=op.rest_cols, vals=op.rest_vals, recv=recv,
+                  route=route)
+        y = g.hyb_spmv_sharded(*args, **kw)
+        check_bits(y, g.hyb_spmv_sharded_plain(*args, **kw),
+                   f"hyb_spmv_sharded level {lvl} on a rank's block")
+        check_bits(op.spmv(xv), y, f"HaloOp.spmv level {lvl} on a rank's "
+                   "block")
+        xw = mesh.all_gather(xv.view(nl, -1))
+        spmvs.append((lvl, op, xv, xw, hv, recv, args, kw))
+    res: dict = {}
+    if timing:
+        w4 = x.element_size()
+        recs = res.setdefault("halo_fill", [])
+        recs.append(record(
+            {}, "halo_fill", f"rank block nlocal={nl} npr={npr} h={h} "
+            "x=float32, outer edges received", 0.0,
+            lambda: g.halo_fill(x, nl, h, lo, hi),
+            lambda: g.halo_fill_plain(x, nl, h, lo, hi), None,
+            4 * nl * h * w4))
+        ext = npr + 2 * h
+        rows = torch.arange(idx.shape[-1], device=dev) // npr
+        c = (idx.long() - (r0 + rows * npr - h)).clamp(0, ext - 1)
+        ext_idx = (rows * ext + c).reshape(-1)
+        xs = x.view(nl, npr)
+
+        def library():
+            return torch.cat([halo[:, 0], xs, halo[:, 1]], 1).view(-1) \
+                .index_select(0, ext_idx)
+        check(torch.equal(library().view(idx.shape), out),
+              "K4's library yardstick computes another function")
+        res["take_sharded"] = [record(
+            {}, "take_sharded", f"rank block idx={tuple(idx.shape)} "
+            f"x=float32 npr={npr} h={h} base={r0}", 0.0,
+            lambda: g.take_sharded(idx, x, halo, npr, h, base=r0),
+            lambda: g.take_sharded_plain(idx, x, halo, npr, h, r0), library,
+            idx.numel() * (4 + w4) + touched(ext_idx) * w4)]
+        recs = res.setdefault("hyb_spmv_sharded", [])
+        for lvl, op, xv, xw, hv, recv, args, kw in spmvs:
+            ell = repad_ell(mats[lvl], xw.shape[0])
+            lo_r, hi_r = mesh.local_rows(xw.shape[0])
+            csr = csr_of(ell.cols[:, lo_r:hi_r], ell.vals[:, lo_r:hi_r],
+                         ell.slot_mask()[:, lo_r:hi_r], xw.shape[0])
+            yk = g.hyb_spmv_sharded(*args, **kw)
+            check(torch.allclose(torch.mv(csr, xw), yk, rtol=1e-4,
+                                 atol=1e-4),
+                  f"level {lvl}: the cuSPARSE yardstick computes another "
+                  "function")
+            entries = int((op.a.dvals != 0).sum())
+            nbytes = (op.a.dvals.numel() + 2 * op.npad) * w4
+            for t in (hv, recv):
+                nbytes += 0 if t is None else t.numel() * w4
+            K = 0 if op.rest_cols is None else op.rest_cols.shape[1]
+            if K:
+                entries += int((op.rest_vals != 0).sum())
+                nbytes += op.rest_cols.numel() * (4 + w4)
+            recs.append(record(
+                {}, "hyb_spmv_sharded", f"rank block level {lvl} f32 "
+                f"nlocal={nl} npr={op.npad // nl} D={op.a.lanes.d} "
+                f"w={0 if hv is None else hv.shape[2]} K={K} "
+                f"remainder={op.route}", 0.0,
+                lambda: g.hyb_spmv_sharded(*args, **kw),
+                lambda: g.hyb_spmv_sharded_plain(*args, **kw),
+                lambda: torch.mv(csr, xw), nbytes, 2 * entries))
+    torch.cuda.synchronize()
+    # the other rank waits here while rank 0 times
+    mesh.allreduce_sum(torch.zeros((1,), device=dev))
+    return res
+
+
+def multicard_rank(out_dir: str, backend: str, device: str,
+                   spr: str) -> int:
+    """One rank of the multicard phase (this script with
+    ``--multicard-rank``): joins through the ``MGS_*`` variables, runs the
+    main path over the row mesh, reads its launch counts and transport
+    bytes, checks the kernels on its local block, and writes
+    ``rank<r>.json`` (and, on rank 0, the whole labels and solution) to
+    ``out_dir``."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.cli.generators import poisson2d
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.parallel import (
+        build_amg_setup_sharded, check_replicated, gather_setup,
+        global_row_mesh, host_read, init_multihost, shard_hierarchy,
+        shutdown_multihost)
+    from multigridsolver_tpu_torch.solve.api import solve_hierarchy
+    from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
+    from multigridsolver_tpu_torch.utils.config import (BENCH_GRID,
+                                                        BENCH_HIERARCHY,
+                                                        bench_config)
+    comm = init_multihost(backend=backend, device=device)
+    mesh = global_row_mesh(int(spr))
+    log(f"joined: {comm.describe()}; {mesh}")
+    a = poisson2d(BENCH_GRID)
+    b = np.random.RandomState(0).rand(a.nrows)
+    dev = comm.device
+    g.reset_launch_counts()
+    comm.reset_counts()
+    ell, t_ell = timed(lambda: a.to_ell(dtype=torch.float32, device=dev))
+    setup, t_setup = timed(lambda: build_amg_setup_sharded(
+        ell, bench_config(), mesh))
+    whole, t_gather = timed(lambda: gather_setup(setup, ell, mesh))
+    hier, t_hier = timed(lambda: build_hierarchy(
+        whole.matrices[0], whole.level_labels, whole.matrices[1:],
+        **BENCH_HIERARCHY))
+    hs, t_shard = timed(lambda: shard_hierarchy(hier, mesh,
+                                                shard_levels=2))
+    digest, t_check = timed(lambda: check_replicated(hs, mesh, 2))
+    res, t_solve = timed(lambda: solve_hierarchy(
+        hs, b, method="bicgstab", tol=1e-6, maxiter=200))
+    counts = g.launch_counts()
+    sent = dict(comm.sent)
+    x = host_read(res.x, mesh)[:a.nrows]
+    kernels = multicard_kernels(mesh, setup.matrices[0], hs, whole.matrices,
+                                timing=comm.rank == 0)
+    spmv_bytes = []
+    for lvl in (0, 1):
+        op = hs.levels[lvl].a
+        xv = torch.ones((op.npad,), dtype=torch.float32, device=dev)
+        comm.reset_counts()
+        op.spmv(xv)
+        torch.cuda.synchronize()
+        spmv_bytes.append(dict(comm.sent))
+    doc = dict(rank=comm.rank, transport=comm.describe(), device=str(dev),
+               device_name=torch.cuda.get_device_name(dev),
+               levels=[m.nrows for m in whole.matrices],
+               iterations=res.iterations, relres=res.relres,
+               status=res.status, digest=digest, launches=counts, sent=sent,
+               spmv_bytes=spmv_bytes, kernels=kernels,
+               times=dict(to_ell=t_ell, setup=t_setup, gather_setup=t_gather,
+                          hierarchy=t_hier, shard_hierarchy=t_shard,
+                          check_replicated=t_check, solve=t_solve))
+    if comm.rank == 0:
+        torch.save(dict(labels=[l.cpu() for l in whole.level_labels],
+                        x=torch.from_numpy(x)),
+                   os.path.join(out_dir, "whole.pt"))
+    with open(os.path.join(out_dir, f"rank{comm.rank}.json"), "w") as f:
+        json.dump(doc, f)
+    shutdown_multihost()
+    return 0
 
 
 def phase_csky(device, res) -> dict:
@@ -2775,19 +3144,30 @@ def main() -> int:
         torch.cuda.set_device(device)
         phase_build()
         problem = poisson2d(BENCH_GRID)
+        if "--multicard-only" in sys.argv[1:]:
+            # the main path and its run over ranks alone, with as many
+            # ranks as cards (NCCL) where there are two or more, else two
+            # on the card (gloo), each of 4 / ranks shards: no result lines
+            ranks = max(torch.cuda.device_count(), MULTICARD_RANKS)
+            phase_multicard(phase_main_path(device, problem), {}, {},
+                            ranks=ranks, spr=max(4 // ranks, 1))
+            log("chip_smoke: the multicard phase passed")
+            return 0
         kres, floor_ms = phase_kernels(device, problem)
         unsharded = phase_main_path(device, problem)
         phase_hyb(device, unsharded, kres)
-        sharded, hier_sh = phase_sharded(device, problem, unsharded)
+        sharded, hier_sh, sharded_times = phase_sharded(device, problem,
+                                                        unsharded)
         phase_sharded_spmv(device, hier_sh, unsharded, kres)
+        multicard = phase_multicard(unsharded, sharded_times, kres)
         csky = phase_csky(device, kres)
         phase_csky_hyb(device, csky, kres)
         smoothers = phase_smoothers(device, unsharded, csky, kres)
         quality = phase_quality(device, unsharded, csky, kres)
         cli = phase_cli(device)
         by_path = {"unsharded": unsharded["launches"], "sharded": sharded,
-                   "csky": csky["launches"], "smoothers": smoothers,
-                   "quality": quality, "cli": cli}
+                   "multicard": multicard, "csky": csky["launches"],
+                   "smoothers": smoothers, "quality": quality, "cli": cli}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2804,7 +3184,7 @@ def main() -> int:
                         "csky_lookup_bound_ms", "csky_member_fetch",
                         "csky_levels", "split_tri", "ilu_factors",
                         "ilu0_row_fetch", "spgemm_fetch",
-                        "weighted_transfers", "checktentagg")
+                        "weighted_transfers", "checktentagg", "rank_block")
                        if k in kres[name]})
                for name in REPLACES]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms}))
@@ -2815,4 +3195,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == "--multicard-rank":
+        sys.exit(multicard_rank(*sys.argv[2:]))
     sys.exit(main())

@@ -123,9 +123,11 @@
 // of 4 on the vector route, so a word group never straddles two shards.
 // An idx off 16-byte alignment, or npr % 4 != 0, takes the scalar route
 // (one word a thread, the same grid).  halo_fill writes the halo buffer
-// from x in one launch (zero at the mesh ends); on several cards NCCL
-// fills it and K4 takes a pointer to the local block instead of
-// x + s * npr.
+// from x in one launch (zero at the mesh ends).  On a mesh over ranks x
+// is the rank's local block of shards: the transport (NCCL or gloo)
+// brings the neighbour ranks' edge slabs, halo_fill takes them as the
+// outer edges of its first and last shard, and K4 rebases the global
+// indices by the rank's first row (base).
 //
 // hyb_spmv_sharded: K1 for a row-sharded operator, all shards in one
 // launch (blockIdx.y the shard, blockIdx.x its row blocks).  Shard s owns
@@ -649,21 +651,23 @@ __device__ __forceinline__ W sharded_word(int c, int shift, int h, int npr,
 // K4: blockIdx.z is the slot row k (0 for a 1-D idx), blockIdx.y the shard
 // s, blockIdx.x * kThreads + threadIdx.x the thread's word group along the
 // shard's npr rows.  Slot (k, s * npr + t) lies at k * npad + s * npr + t
-// of idx and out.  halo is (ndev, 2, h): [s][0] the left neighbour's last
-// h words, [s][1] the right neighbour's first h words.  On the vector route
-// (kVec: npr % 4 == 0, idx and out 16-byte aligned) a thread moves
-// VecWords<W>::V words, else one.
+// of idx and out.  The indices are global: base is the global index of
+// the launch's first row (0 on one process; on a mesh over ranks, the
+// rank's first row, x its local block).  halo is (ndev, 2, h): [s][0] the
+// left neighbour's last h words, [s][1] the right neighbour's first h
+// words.  On the vector route (kVec: npr % 4 == 0, idx and out 16-byte
+// aligned) a thread moves VecWords<W>::V words, else one.
 template <typename W, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 take_sharded_kernel(const int* __restrict__ idx, const W* __restrict__ x,
                     const W* __restrict__ halo, W* __restrict__ out,
-                    int npad, int npr, int h) {
+                    int npad, int npr, int h, int base) {
   constexpr int V = kVec ? VecWords<W>::V : 1;
   const int t = (blockIdx.x * kThreads + threadIdx.x) * V;
   if (t >= npr) return;
   const int s = blockIdx.y;
   const int j0 = blockIdx.z * npad + s * npr + t;
-  const int shift = s * npr - h;
+  const int shift = base + s * npr - h;
   const W* xs = x + s * npr;
   const W* lo = halo + 2 * s * h;
   const W* hi = lo + h;
@@ -685,20 +689,28 @@ take_sharded_kernel(const int* __restrict__ idx, const W* __restrict__ x,
   store_words(out + j0, v);
 }
 
-// halo_fill: halo[s][0] = x[s * npr - h, s * npr) (0 for s = 0) and
-// halo[s][1] = x[(s + 1) * npr, (s + 1) * npr + h) (0 for the last
-// shard), one word a thread; blockIdx.y = 2 s + side
+// halo_fill: halo[s][0] = x[s * npr - h, s * npr) and halo[s][1] =
+// x[(s + 1) * npr, (s + 1) * npr + h), one word a thread; blockIdx.y =
+// 2 s + side.  The outer edges (halo[0][0], halo[ndev - 1][1]) come from
+// lo and hi, the slabs received from the neighbour ranks on a mesh over
+// ranks, or are 0 where those are null (the mesh ends).
 template <typename W>
 __global__ void __launch_bounds__(kThreads)
 halo_fill_kernel(const W* __restrict__ x, W* __restrict__ halo, int ndev,
-                 int npr, int h) {
+                 int npr, int h, const W* __restrict__ lo,
+                 const W* __restrict__ hi) {
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= h) return;
   const int s = blockIdx.y >> 1;
   const bool right = blockIdx.y & 1;
   W v = W(0);
-  if (!right && s > 0) v = x[s * npr - h + j];
-  if (right && s + 1 < ndev) v = x[(s + 1) * npr + j];
+  if (!right) {
+    if (s > 0) v = x[s * npr - h + j];
+    else if (lo != nullptr) v = lo[j];
+  } else {
+    if (s + 1 < ndev) v = x[(s + 1) * npr + j];
+    else if (hi != nullptr) v = hi[j];
+  }
   halo[blockIdx.y * h + j] = v;
 }
 
@@ -860,7 +872,7 @@ int take_sharded_route(const void* idx, const void* out, int npr) {
 
 template <typename W>
 int launch_take_sharded(const void* idx, const void* x, const void* halo,
-                        void* out, int K, int ndev, int npr, int h,
+                        void* out, int K, int ndev, int npr, int h, int base,
                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(idx);
@@ -871,22 +883,23 @@ int launch_take_sharded(const void* idx, const void* x, const void* halo,
     constexpr int V = VecWords<W>::V;
     const dim3 grid((npr / V + kThreads - 1) / kThreads, ndev, K);
     take_sharded_kernel<W, true><<<grid, kThreads, 0, s>>>(
-        ip, xp, hp, op, ndev * npr, npr, h);
+        ip, xp, hp, op, ndev * npr, npr, h, base);
   } else {
     const dim3 grid((npr + kThreads - 1) / kThreads, ndev, K);
     take_sharded_kernel<W, false><<<grid, kThreads, 0, s>>>(
-        ip, xp, hp, op, ndev * npr, npr, h);
+        ip, xp, hp, op, ndev * npr, npr, h, base);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename W>
 int launch_halo_fill(const void* x, void* halo, int ndev, int npr, int h,
-                     void* stream) {
+                     const void* lo, const void* hi, void* stream) {
   const dim3 grid((h + kThreads - 1) / kThreads, 2 * ndev);
   halo_fill_kernel<W><<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const W*>(x), static_cast<W*>(halo), ndev, npr, h);
+      static_cast<const W*>(x), static_cast<W*>(halo), ndev, npr, h,
+      static_cast<const W*>(lo), static_cast<const W*>(hi));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1018,24 +1031,24 @@ int mgs_empty(void* stream) {
 }
 
 int mgs_take_sharded_w1(const void* idx, const void* x, const void* halo,
-                        void* out, int K, int ndev, int npr, int h,
+                        void* out, int K, int ndev, int npr, int h, int base,
                         void* stream) {
   return launch_take_sharded<unsigned char>(idx, x, halo, out, K, ndev, npr,
-                                            h, stream);
+                                            h, base, stream);
 }
 
 int mgs_take_sharded_w4(const void* idx, const void* x, const void* halo,
-                        void* out, int K, int ndev, int npr, int h,
+                        void* out, int K, int ndev, int npr, int h, int base,
                         void* stream) {
   return launch_take_sharded<uint32_t>(idx, x, halo, out, K, ndev, npr, h,
-                                       stream);
+                                       base, stream);
 }
 
 int mgs_take_sharded_w8(const void* idx, const void* x, const void* halo,
-                        void* out, int K, int ndev, int npr, int h,
+                        void* out, int K, int ndev, int npr, int h, int base,
                         void* stream) {
   return launch_take_sharded<unsigned long long>(idx, x, halo, out, K, ndev,
-                                                 npr, h, stream);
+                                                 npr, h, base, stream);
 }
 
 // the route a K4 call with this idx takes (TakeRoute); out as the wrapper
@@ -1045,18 +1058,20 @@ int mgs_take_sharded_route(const void* idx, int npr) {
 }
 
 int mgs_halo_fill_w1(const void* x, void* halo, int ndev, int npr, int h,
-                     void* stream) {
-  return launch_halo_fill<unsigned char>(x, halo, ndev, npr, h, stream);
+                     const void* lo, const void* hi, void* stream) {
+  return launch_halo_fill<unsigned char>(x, halo, ndev, npr, h, lo, hi,
+                                         stream);
 }
 
 int mgs_halo_fill_w4(const void* x, void* halo, int ndev, int npr, int h,
-                     void* stream) {
-  return launch_halo_fill<uint32_t>(x, halo, ndev, npr, h, stream);
+                     const void* lo, const void* hi, void* stream) {
+  return launch_halo_fill<uint32_t>(x, halo, ndev, npr, h, lo, hi, stream);
 }
 
 int mgs_halo_fill_w8(const void* x, void* halo, int ndev, int npr, int h,
-                     void* stream) {
-  return launch_halo_fill<unsigned long long>(x, halo, ndev, npr, h, stream);
+                     const void* lo, const void* hi, void* stream) {
+  return launch_halo_fill<unsigned long long>(x, halo, ndev, npr, h, lo, hi,
+                                              stream);
 }
 
 int mgs_hyb_spmv_sharded_f32(const void* dvals, const HybLanes* lanes,

@@ -167,14 +167,14 @@ def load_library() -> ctypes.CDLL:
             for name in ("mgs_take_sharded_w1", "mgs_take_sharded_w4",
                          "mgs_take_sharded_w8"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p, i, i, i, i, p]
+                fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
                 fn.restype = i
             lib.mgs_take_sharded_route.argtypes = [p, i]
             lib.mgs_take_sharded_route.restype = i
             for name in ("mgs_halo_fill_w1", "mgs_halo_fill_w4",
                          "mgs_halo_fill_w8"):
                 fn = getattr(lib, name)
-                fn.argtypes = [p, p, i, i, i, p]
+                fn.argtypes = [p, p, i, i, i, p, p, p]
                 fn.restype = i
             for name in ("mgs_hyb_spmv_sharded_f32",
                          "mgs_hyb_spmv_sharded_f64"):
@@ -598,32 +598,49 @@ def take_rows_route(idx: torch.Tensor, sources) -> str:
 MAX_GRID_YZ = 65535
 
 
-def halo_fill_plain(x: torch.Tensor, ndev: int, h: int) -> torch.Tensor:
+def halo_fill_plain(x: torch.Tensor, ndev: int, h: int,
+                    lo: torch.Tensor | None = None,
+                    hi: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of :func:`halo_fill`: the two non-cyclic shifts of
-    the boundary slabs, zeros at the mesh ends."""
+    the boundary slabs, the outer edges ``lo``/``hi`` (zeros where
+    None)."""
     xs = x.view(ndev, -1)
     halo = x.new_zeros((ndev, 2, h))
     if h:
         halo[1:, 0] = xs[:-1, xs.shape[1] - h:]
         halo[:-1, 1] = xs[1:, :h]
+        if lo is not None:
+            halo[0, 0] = lo
+        if hi is not None:
+            halo[-1, 1] = hi
     return halo
 
 
-def halo_fill(x: torch.Tensor, ndev: int, h: int) -> torch.Tensor:
+def halo_fill(x: torch.Tensor, ndev: int, h: int,
+              lo: torch.Tensor | None = None,
+              hi: torch.Tensor | None = None) -> torch.Tensor:
     """The halo K4 and :func:`hyb_spmv_sharded` read: ``(ndev, 2, h)``
     with ``[s, 0]`` the last ``h`` words of shard ``s − 1`` and ``[s, 1]``
-    the first ``h`` of shard ``s + 1`` (zeros at the mesh ends), for ``x``
-    split into ``ndev`` shards of ``npr ≥ h`` words of 1, 4 or 8 bytes.
-    One launch on the card (the body of the two ppermutes of
-    ``windowed_take_sharded``)."""
+    the first ``h`` of shard ``s + 1``, for ``x`` split into ``ndev``
+    shards of ``npr ≥ h`` words of 1, 4 or 8 bytes.  The outer edges
+    ``[0, 0]`` and ``[ndev − 1, 1]`` are ``lo`` and ``hi`` (``(h,)``: on a
+    mesh over ranks, the slabs received from the neighbour ranks), zeros
+    where None (the mesh ends).  One launch on the card (the body of the
+    two ppermutes of ``windowed_take_sharded``)."""
     _require(x.dim() == 1 and ndev >= 1 and x.shape[0] % ndev == 0,
              f"x must split into {ndev} shards, got {tuple(x.shape)}")
     npr = x.shape[0] // ndev
     _require(0 <= h <= npr, f"halo width {h} must lie in [0, {npr}]")
     _check_words(x, (1, 4, 8))
-    if not _on_cuda(x):
-        return halo_fill_plain(x, ndev, h)
-    _require(x.is_contiguous(), "halo_fill needs a contiguous x")
+    for edge in (lo, hi):
+        _require(edge is None or (edge.shape == (h,)
+                                  and edge.dtype == x.dtype),
+                 f"an outer edge must be ({h},) of x's {x.dtype}")
+    edges = [e for e in (lo, hi) if e is not None]
+    if not _on_cuda(x, *edges):
+        return halo_fill_plain(x, ndev, h, lo, hi)
+    _require(x.is_contiguous() and all(e.is_contiguous() for e in edges),
+             "halo_fill needs contiguous tensors")
     _require(2 * ndev <= MAX_GRID_YZ, f"{ndev} shards exceed halo_fill's "
              "grid")
     _int_max(x.shape[0])
@@ -634,7 +651,9 @@ def halo_fill(x: torch.Tensor, ndev: int, h: int) -> torch.Tensor:
     fn = {1: lib.mgs_halo_fill_w1, 4: lib.mgs_halo_fill_w4,
           8: lib.mgs_halo_fill_w8}[x.element_size()]
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), halo.data_ptr(), ndev, npr, h, _stream(x))
+        rc = fn(x.data_ptr(), halo.data_ptr(), ndev, npr, h,
+                None if lo is None else lo.data_ptr(),
+                None if hi is None else hi.data_ptr(), _stream(x))
     _check(rc, "halo_fill")
     halo_fill.launches += 1
     _log_shape("halo_fill", npr, ndev, x.element_size())
@@ -645,14 +664,14 @@ halo_fill.launches = 0
 
 
 def take_sharded_plain(idx: torch.Tensor, x: torch.Tensor, halo: torch.Tensor,
-                       npr: int, h: int) -> torch.Tensor:
+                       npr: int, h: int, base: int = 0) -> torch.Tensor:
     """Plain version of K4: per shard, ``take_plain`` of the rebased
     indices on ``cat([lo, x_local, hi])``."""
     outs = []
     for s in range(halo.shape[0]):
         src = torch.cat([halo[s, 0], x[s * npr:(s + 1) * npr], halo[s, 1]])
-        outs.append(take_plain(idx[..., s * npr:(s + 1) * npr] - (s * npr - h),
-                               src))
+        outs.append(take_plain(idx[..., s * npr:(s + 1) * npr]
+                               - (base + s * npr - h), src))
     return torch.cat(outs, -1)
 
 
@@ -674,21 +693,26 @@ def _check_take_sharded(idx, x, halo, npr, h) -> None:
 
 
 def take_sharded(idx: torch.Tensor, x: torch.Tensor, halo: torch.Tensor,
-                 npr: int, h: int) -> torch.Tensor:
+                 npr: int, h: int, base: int = 0) -> torch.Tensor:
     """K4: the neighbour gather of a row-sharded operator.
 
     The rows (the last axis of ``idx``, ``ndev * npr`` long) are split into
     ``ndev`` shards of ``npr``; shard ``s`` reads ``x`` at global indices in
-    ``[s·npr − h, (s+1)·npr + h)``, its own block of ``x`` directly and the
-    ``h`` rows on either side from ``halo`` ``(ndev, 2, h)`` (the
-    neighbours' boundary slabs, zero at the mesh ends: :func:`halo_fill`).
+    ``[base + s·npr − h, base + (s+1)·npr + h)``, its own block of ``x``
+    directly and the ``h`` rows on either side from ``halo`` ``(ndev, 2,
+    h)`` (the neighbours' boundary slabs, zero at the mesh ends:
+    :func:`halo_fill`).
     Indices outside that range are clamped into it (junk the callers
     mask).  ``idx`` is int32 ``(K, ndev·npr)`` or ``(ndev·npr,)``; ``x``
     ``(ndev·npr,)`` and ``halo`` hold one dtype of 1-, 4- or 8-byte words
-    (a bool field is gathered as its bytes)."""
+    (a bool field is gathered as its bytes).  The indices are global and
+    ``base`` is the global index of ``x``'s first row: 0 on one process,
+    the rank's first row when ``x`` is a rank's local block of a mesh
+    over ranks."""
     _check_take_sharded(idx, x, halo, npr, h)
+    _int_max(base + x.shape[0] + h)
     if not _on_cuda(idx, x, halo):
-        return take_sharded_plain(idx, x, halo, npr, h)
+        return take_sharded_plain(idx, x, halo, npr, h, base)
     _require(idx.is_contiguous() and x.is_contiguous()
              and halo.is_contiguous(), "K4 needs contiguous tensors")
     ndev = halo.shape[0]
@@ -707,7 +731,7 @@ def take_sharded(idx: torch.Tensor, x: torch.Tensor, halo: torch.Tensor,
           8: lib.mgs_take_sharded_w8}[x.element_size()]
     with torch.cuda.device(x.device):
         rc = fn(idx.data_ptr(), x.data_ptr(), halo.data_ptr(),
-                out.data_ptr(), K, ndev, npr, h, _stream(x))
+                out.data_ptr(), K, ndev, npr, h, base, _stream(x))
     _check(rc, "take_sharded")
     take_sharded.launches += 1
     _log_shape("take_sharded", idx.shape[-1], K, x.element_size())

@@ -10,17 +10,31 @@ as the JAX package's stay on GSPMD's partitioned gathers.
 Every decision of the setup is integer or bitwise-reproducible float
 arithmetic evaluated pointwise, and the gathers move bits, so the sharded
 setup yields the unsharded run's labels bit for bit.
+
+On a mesh over ranks each rank holds only its rows of the finest level:
+the halo's outer edges come from the neighbour ranks, the host reads of
+the first pass (round flags, counts, the leader numbering) are
+collective, each rank builds the coarse rows of its own leaders, and one
+all-gather makes the first pass's coarse operator whole on every rank;
+from the second pass on, the setup runs unchanged and identically on
+every rank.  :func:`gather_setup` then makes the finest level whole again
+for the hierarchy, and :func:`check_replicated` holds the replicated
+levels of every rank to one another.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
+import numpy as np
 import torch
 
 from ..setup.aggregation import SetupResult, build_amg_setup
+from ..solve.hierarchy import Hierarchy
 from ..sparse.formats import ELL
 from ..utils.config import HierarchyConfig
-from .sharded import RowMesh, _round_up, repad_ell, shard_ell
+from .sharded import (RowMesh, _round_up, halo_reach, local_ell, on_device,
+                      repad_ell, shard_ell)
 
 # halo widths are whole multiples of this many rows
 HALO_MULTIPLE = 128
@@ -39,22 +53,19 @@ def shard_ell_halo(a: ELL, mesh: RowMesh) -> ELL | None:
     so every index ``take_neighbor`` is given (stored columns, own rows) is
     served.  Marks the ELL with ``shard = (mesh, npr, h)``; returns None
     when the halo would exceed a shard (no single-hop exchange covers it).
+    Over ranks ``a`` is whole on every rank, the halo also covers the
+    rows that store a column of a shard (a column sum's terms), and only
+    this rank's rows are kept.
     """
     ndev = mesh.ndev
-    a = repad_ell(shard_ell(a, mesh), ndev * ROW_BLOCK)
+    a = on_device(repad_ell(a, ndev * ROW_BLOCK), mesh.device)
     npr = a.npad // ndev
-    # per shard: the least and greatest valid column of its rows
-    valid = a.slot_mask()
-    big = torch.iinfo(torch.int32).max
-    lo = torch.where(valid, a.cols, big).view(a.k, ndev, npr).amin((0, 2))
-    hi = torch.where(valid, a.cols, -1).view(a.k, ndev, npr).amax((0, 2))
-    over = 0
-    for s, (l, u) in enumerate(zip(lo.tolist(), hi.tolist())):
-        if u >= 0:
-            over = max(over, s * npr - l, u - ((s + 1) * npr - 1))
-    h = _round_up(over, HALO_MULTIPLE)
+    h = _round_up(halo_reach(a, ndev, transposed=mesh.over_ranks),
+                  HALO_MULTIPLE)
     if h > npr:
         return None
+    if mesh.over_ranks:
+        return local_ell(a, mesh, h)
     return dataclasses.replace(a, shard=(mesh, npr, h))
 
 
@@ -65,8 +76,90 @@ def build_amg_setup_sharded(a: ELL, cfg: HierarchyConfig,
     (``shard_ell_halo``), or, when no single-hop halo covers it, the
     gathers from the whole vector.  The rest is ``build_amg_setup``
     unchanged.  The labels equal the unsharded run's on the logical rows;
-    the finest level's are padded with -1 to the sharded npad."""
+    the finest level's are padded with -1 to the sharded npad.
+
+    Over ranks ``a`` is the whole operator on every rank; the finest
+    level's operator and labels in the result are this rank's rows (every
+    other level is whole).  The mutual matching's first pass is what runs
+    over ranks: the greedy matching, checktentagg and the smoothed
+    prolongation read the whole finest level and are refused there, as is
+    a halo wider than a shard."""
+    if mesh.over_ranks:
+        agg = cfg.aggregation
+        refused = [name for name, on in (
+            ("the greedy matching", agg.matching == "greedy"),
+            ("check_tentagg", agg.check_tentagg),
+            ("smooth_p", cfg.smooth_p is not None)) if on]
+        if refused:
+            raise NotImplementedError(
+                f"the setup over ranks does not take {', '.join(refused)}")
     a_sh = shard_ell_halo(a, mesh)
     if a_sh is None:
+        if mesh.over_ranks:
+            raise ValueError("the finest level's halo exceeds a shard: no "
+                             "single-hop exchange between ranks covers it")
         a_sh = shard_ell(a, mesh)
     return build_amg_setup(a_sh, cfg)
+
+
+def gather_setup(setup: SetupResult, a: ELL, mesh: RowMesh) -> SetupResult:
+    """A setup of :func:`build_amg_setup_sharded` over ranks with its
+    finest level whole on every rank: ``a`` (the whole operator every rank
+    holds, as it was passed) and the finest labels all-gathered (a
+    collective); the other levels are whole already.  Unchanged in one
+    process."""
+    if not mesh.over_ranks:
+        return setup
+    labels = mesh.all_gather(setup.level_labels[0].view(mesh.nlocal, -1))
+    return dataclasses.replace(
+        setup, matrices=[a] + list(setup.matrices[1:]),
+        level_labels=[labels[:a.npad].to(a.device)]
+        + list(setup.level_labels[1:]))
+
+
+def replicated_digest(hier: Hierarchy, shard_levels: int) -> str:
+    """SHA-256 of everything a sharded hierarchy replicates: the levels
+    from ``shard_levels`` on (operator, labels, smoother diagonal and
+    λmax, transfer arrays) and the coarse LU."""
+    h = hashlib.sha256()
+
+    def add(t):
+        if t is None:
+            h.update(b"-")
+        elif torch.is_tensor(t):
+            h.update(str((t.dtype, tuple(t.shape))).encode())
+            h.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                     .numpy().tobytes())
+        else:
+            h.update(repr(t).encode())
+
+    for lvl in hier.levels[shard_levels:]:
+        a = lvl.a
+        for t in (a.dvals, a.offsets, a.nrows,
+                  None if a.ell is None else a.ell.cols,
+                  None if a.ell is None else a.ell.vals,
+                  None if a.ell is None else a.ell.rownnz,
+                  lvl.labels, lvl.smoother.d, lvl.smoother.lmax,
+                  lvl.tplan.p_cols, lvl.tplan.m_cols, lvl.tplan.m_vals):
+            add(t)
+    for t in (hier.coarse.lu, hier.coarse.piv):
+        add(t)
+    return h.hexdigest()
+
+
+def check_replicated(hier: Hierarchy, mesh: RowMesh,
+                     shard_levels: int) -> str:
+    """All-gather every rank's :func:`replicated_digest` and raise unless
+    they agree (a collective).  Returns the digest."""
+    digest = replicated_digest(hier, shard_levels)
+    if mesh.over_ranks:
+        mine = torch.from_numpy(np.frombuffer(bytes.fromhex(digest),
+                                              dtype=np.int64).copy())
+        every = mesh.all_gather(mine.to(mesh.device).view(1, -1)) \
+            .view(mesh.world, -1).cpu()
+        differ = [r for r in range(mesh.world)
+                  if not torch.equal(every[r], mine)]
+        if differ:
+            raise RuntimeError(f"rank {mesh.rank}: the replicated levels "
+                               f"differ from ranks {differ}")
+    return digest

@@ -109,17 +109,18 @@ def shard_blocks(t: torch.Tensor, ndev: int) -> torch.Tensor:
     ``(ndev, K, npr)``: the rows each shard owns, as its kernel reads
     them."""
     k, npad = t.shape
-    return t.view(k, ndev, npad // ndev).transpose(0, 1).contiguous()
+    return t.reshape(k, ndev, npad // ndev).transpose(0, 1).contiguous()
 
 
 def exchange_recv(xs: torch.Tensor, send_idx: torch.Tensor,
                   mesh: RowMesh) -> torch.Tensor:
-    """Gather every shard's outgoing values (``xs``: ``(ndev, npr)``) and
-    swap them with every peer.  Returns ``(ndev, ndev·L)``: each shard's
-    flat recv buffer, laid out as the remapped columns address it."""
-    ndev = mesh.ndev
-    sv = torch.gather(xs, 1, send_idx.view(ndev, -1)).view(send_idx.shape)
-    return mesh.all_to_all(sv).view(ndev, -1)
+    """Gather every local shard's outgoing values (``xs``: ``(nlocal,
+    npr)``, ``send_idx`` ``(nlocal, ndev, L)``) and swap them with every
+    peer.  Returns ``(nlocal, ndev·L)``: each local shard's flat recv
+    buffer, laid out as the remapped columns address it."""
+    nl = mesh.nlocal
+    sv = torch.gather(xs, 1, send_idx.view(nl, -1)).view(send_idx.shape)
+    return mesh.all_to_all(sv).view(nl, -1)
 
 
 @dataclass
@@ -149,29 +150,33 @@ class ExchangeELL:
         return self.cols.shape[1]
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        ndev = self.mesh.ndev
+        nl = self.mesh.nlocal
         x = x.contiguous()
-        recv = exchange_recv(x.view(ndev, -1), self.send_idx,
+        recv = exchange_recv(x.view(nl, -1), self.send_idx,
                              self.mesh) if self.L > 0 else None
-        return gather.hyb_spmv_sharded(None, gather.NO_LANES, x, ndev,
+        return gather.hyb_spmv_sharded(None, gather.NO_LANES, x, nl,
                                        cols=self.cols, vals=self.vals,
                                        recv=recv, route="exchange")
 
 
 def exchange_ell(ell, mesh: RowMesh) -> ExchangeELL | None:
-    """Wrap an already-sharded ELL in the index-list exchange.  One host
-    read of cols/rownnz; None if the plan is refused (the caller keeps
-    the all-gather path)."""
-    ndev = mesh.ndev
+    """Wrap a sharded ELL (whole, npad a multiple of ``ndev``) in the
+    index-list exchange.  One host read of cols/rownnz; None if the plan
+    is refused (the caller keeps the all-gather path).  Over ranks this
+    rank's rows of the plan are kept."""
+    ndev, nl = mesh.ndev, mesh.nlocal
     plan = build_exchange_plan(ell.cols.cpu().numpy(),
                                ell.rownnz.cpu().numpy(), ndev)
     if plan is None:
         return None
+    lo, hi = mesh.local_rows(ell.npad)
+    mine = slice(mesh.first_shard, mesh.first_shard + nl)
     dev = ell.cols.device
     return ExchangeELL(
-        cols=shard_blocks(torch.from_numpy(plan.cols).to(dev), ndev),
-        vals=shard_blocks(ell.vals, ndev), rownnz=ell.rownnz,
-        send_idx=torch.from_numpy(plan.send_idx).to(device=dev,
-                                                    dtype=torch.int64),
+        cols=shard_blocks(torch.from_numpy(plan.cols[:, lo:hi]).to(dev), nl),
+        vals=shard_blocks(ell.vals[:, lo:hi], nl),
+        rownnz=ell.rownnz[lo:hi],
+        send_idx=torch.from_numpy(plan.send_idx[mine]).to(
+            device=dev, dtype=torch.int64),
         mesh=mesh, L=plan.L, nrows=ell.nrows, ncols=ell.ncols,
-        npad=ell.npad)
+        npad=hi - lo)

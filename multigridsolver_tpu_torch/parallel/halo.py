@@ -14,7 +14,12 @@ x entries it references — or the all-gather when no plan could be built.
 
 Per SpMV: the halo fill (``RowMesh.boundary_halo``), the index-list
 exchange where the plan has one, then one ``hyb_spmv_sharded`` launch for
-every shard's interior, remainder and corrections.  The halo is the
+every shard's interior, remainder and corrections.  On a mesh over ranks
+the operator holds this rank's rows only, the halo's outer edges and the
+exchange buffer come from the other ranks, and the launch covers the
+rank's ``nlocal`` shards; the all-gather route then reads the gathered x
+as the exchange buffer of every local shard (its columns shifted past the
+shard's own rows).  The halo is the
 non-cyclic one K4 reads (zeros at the mesh ends); the JAX package's ring
 exchange carries the far end's values there instead, but the dval lanes
 are 0 wherever i + o leaves [0, n), so the two give the same bits.
@@ -28,7 +33,7 @@ import torch
 from ..ops import gather
 from ..sparse.hybrid import HYB
 from .exchange import build_exchange_plan, exchange_recv, shard_blocks
-from .sharded import RowMesh, _round_up
+from .sharded import RowMesh, _round_up, local_hybrid
 
 
 def halo_width(a: HYB, multiple: int = 8) -> int:
@@ -75,40 +80,56 @@ class HaloOp:
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         a, mesh = self.a, self.mesh
+        nl = mesh.nlocal
         w = halo_width(a)
         x = x.contiguous()
         halo = mesh.boundary_halo(x, w) if w else None
-        recv = exchange_recv(x.view(mesh.ndev, -1), self.ex_send_idx,
-                             mesh) if self.ex_L else None
+        route, recv = self.route, None
+        if self.ex_L:
+            recv = exchange_recv(x.view(nl, -1), self.ex_send_idx, mesh)
+        elif route == "all_gather" and mesh.over_ranks:
+            recv = mesh.all_gather(x.view(nl, -1)).expand(nl, -1) \
+                .contiguous()
+            route = "exchange"
         return gather.hyb_spmv_sharded(
-            a.dvals, a.lanes, x, mesh.ndev, halo=halo, cols=self.rest_cols,
-            vals=self.rest_vals, recv=recv, route=self.route)
+            a.dvals, a.lanes, x, nl, halo=halo, cols=self.rest_cols,
+            vals=self.rest_vals, recv=recv, route=route)
 
 
 def make_halo_op(a: HYB, mesh: RowMesh) -> HaloOp:
-    """Bind a sharded HYB to the mesh, building the remainder's
-    index-list exchange plan (one host read of the cols pattern) when one
-    exists and is cheaper than the all-gather."""
-    ndev = mesh.ndev
+    """Bind a sharded HYB (whole, npad a multiple of ``ndev``) to the
+    mesh, building the remainder's index-list exchange plan (one host
+    read of the cols pattern) when one exists and is cheaper than the
+    all-gather.  Over ranks the plan is built from the whole pattern and
+    this rank's rows of it are kept."""
+    ndev, nl = mesh.ndev, mesh.nlocal
     if halo_width(a) > a.npad // ndev:
         raise ValueError(f"halo {halo_width(a)} exceeds shard size "
                          f"{a.npad // ndev}; use the all-gather path")
+    local = local_hybrid(a, mesh)
     if a.ell is None:
-        return HaloOp(a=a, mesh=mesh)
+        return HaloOp(a=local, mesh=mesh)
     ell = a.ell
+    lo, hi = mesh.local_rows(a.npad)
+    mine = slice(mesh.first_shard, mesh.first_shard + nl)
     plan = build_exchange_plan(ell.cols.cpu().numpy(),
                                ell.rownnz.cpu().numpy(), ndev)
-    vals = shard_blocks(ell.vals, ndev)
+    vals = shard_blocks(ell.vals[:, lo:hi], nl)
     if plan is None:
-        return HaloOp(a=a, mesh=mesh, rest_cols=shard_blocks(ell.cols, ndev),
+        cols = ell.cols[:, lo:hi]
+        if mesh.over_ranks:
+            # the gathered x is every local shard's exchange buffer
+            cols = cols + a.npad // ndev
+        return HaloOp(a=local, mesh=mesh, rest_cols=shard_blocks(cols, nl),
                       rest_vals=vals)
     dev = ell.cols.device
     return HaloOp(
-        a=a, mesh=mesh,
-        rest_cols=shard_blocks(torch.from_numpy(plan.cols).to(dev), ndev),
+        a=local, mesh=mesh,
+        rest_cols=shard_blocks(torch.from_numpy(plan.cols[:, lo:hi]).to(dev),
+                               nl),
         rest_vals=vals,
-        ex_send_idx=torch.from_numpy(plan.send_idx).to(device=dev,
-                                                       dtype=torch.int64),
+        ex_send_idx=torch.from_numpy(plan.send_idx[mine]).to(
+            device=dev, dtype=torch.int64),
         ex_L=plan.L)
 
 

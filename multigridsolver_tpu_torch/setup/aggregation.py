@@ -27,6 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..sparse import ops as ell_ops
 from ..sparse.formats import ELL
 from ..utils.config import AggregationConfig, HierarchyConfig
 from ..utils.timing import PhaseTimer
@@ -185,7 +186,7 @@ def pairwise_aggregate(a: ELL, cfg: AggregationConfig,
     timer = timer or PhaseTimer(enabled=False)
     greedy = cfg.matching == "greedy"
     if nnz0 is None:
-        nnz0 = a.nnz
+        nnz0 = int(ell_ops.all_sum(a, a.rownnz.sum()))
 
     with timer.phase("aggregation.pass1"):
         if greedy:
@@ -196,8 +197,9 @@ def pairwise_aggregate(a: ELL, cfg: AggregationConfig,
         if cfg.skipass_frac > 0.0 and not greedy:
             # skipass fired: pass 1 paired nothing; one extra pass
             # compensates
-            nodes = torch.arange(a.npad, dtype=torch.int32, device=a.device)
-            extra = int(((paired < 0) | (paired == nodes)).all())
+            nodes = a.row_ids()
+            extra = int(not ell_ops.all_any(
+                a, (paired >= 0) & (paired != nodes)))
         ac, nnz_c = galerkin_pair_ell(a, paired, labels, nc)
     cum_labels = labels
     passes = [PassInfo(nc=nc, nnz=nnz_c)]

@@ -56,22 +56,40 @@ def galerkin_pair_arrays(a: ELL, paired: torch.Tensor, labels: torch.Tensor,
     Returns (cols, vals, rownnz, info, vals_t) with slot width 2K,
     info = [nnz_c, max_degree] (one device tensor) and the coarse
     transposed-value field (None without ``a.vals_t``)."""
-    k, dev = a.k, a.device
+    mesh = ell_ops.rank_mesh(a)
+    if mesh is not None:
+        return _galerkin_pair_arrays_ranks(a, paired, labels, nc, mesh)
     real, safe_leader, partner_of, has_partner = pair_members(paired, labels,
                                                               nc)
-    # relabel the slot columns once on the fine side (K2), then fetch the
-    # members' whole relabelled rows, values, row lengths and (with the
-    # union field) transposed values: one K3 launch per member set
+    return _pair_merge(_member_sources(a, labels), a.k, nc, real,
+                       safe_leader, partner_of, has_partner)
+
+
+def _member_sources(a: ELL, labels: torch.Tensor) -> list:
+    """The member fields K3 fetches: the slot columns relabelled once on
+    the fine side (K2, or K4 on a sharded ELL), the values, the row
+    lengths and (with the union field) the transposed values."""
     lc_fine = ell_ops.take_neighbor(a, torch.where(labels >= 0, labels, -1)
                                     .to(torch.int32))
-    sl = torch.arange(k, dtype=torch.int32, device=dev)[:, None]
-    union = a.vals_t is not None
     sources = [lc_fine, a.vals, a.rownnz[None, :]]
-    if union:
+    if a.vals_t is not None:
         sources.append(a.vals_t)
+    return sources
+
+
+def _pair_merge(sources, k: int, nc: int, real, safe_leader, partner_of,
+                has_partner):
+    """Merge each coarse row's two member rows of ``sources`` (columns
+    ``nc`` and past are invalid): fetch them (one K3 launch per member
+    set), sort each column's 2K candidates, sum runs of equal columns and
+    compact the kept entries to the top slots.  Returns (cols, vals,
+    rownnz, info, vals_t) over the rows of ``real``."""
+    dev = real.device
+    sl = torch.arange(k, dtype=torch.int32, device=dev)[:, None]
+    union = len(sources) == 4
 
     def member_rows(members):
-        # (K, nc), (K, nc), (1, nc)[, (K, nc)]
+        # (K, m), (K, m), (1, m)[, (K, m)]
         cols_m, vals_m, nnz_m, *vt_m = ell_ops.take_member_rows_many(
             members, sources)
         nnz_m = nnz_m[0]
@@ -120,6 +138,56 @@ def galerkin_pair_arrays(a: ELL, paired: torch.Tensor, labels: torch.Tensor,
     info = torch.stack([rownnz.sum(), rownnz.max()]).to(torch.int64)
     return (out_c.to(torch.int32), out_v, rownnz.to(torch.int32), info,
             out_t[0] if union else None)
+
+
+def _galerkin_pair_arrays_ranks(a: ELL, paired: torch.Tensor,
+                                labels: torch.Tensor, nc: int, mesh):
+    """:func:`galerkin_pair_arrays` on a rank's rows of a mesh over ranks.
+
+    Aggregates are numbered in leader order, so the coarse rows whose
+    leader (the smaller member) lies on this rank form one range; the
+    rank merges those rows.  A partner lies past the leader, at most the
+    halo ``h`` into the next rank, whose first ``h`` rows of the member
+    fields arrive through the row halo.  One all-gather of every rank's
+    rows (padded to the longest range) makes the arrays whole on every
+    rank, the same bits as one process."""
+    dev, r0, h = a.device, a.row0, a.shard[2]
+    nodes = a.row_ids()
+    active = labels >= 0
+    lead = torch.minimum(nodes, torch.where(paired >= 0, paired, nodes))
+    is_leader = active & (lead == nodes)
+    counts = mesh.rank_values(is_leader.sum()).tolist()
+    first, width = sum(counts[:mesh.rank]), max(counts)
+    dump = torch.full((width + 1,), -1, dtype=torch.int32, device=dev)
+    dump.scatter_(0, torch.where(is_leader, labels - first, width).long(),
+                  torch.where(is_leader, nodes - r0, -1))
+    leader_of = dump[:width]
+    real = leader_of >= 0
+    safe_leader = leader_of.clamp_min(0)
+    partner = ell_ops.take_member_rows(safe_leader, paired[None, :])[0]
+    partner_of = torch.where(real & (partner >= 0), partner - r0,
+                             safe_leader)
+    has_partner = real & (partner_of != safe_leader)
+    sources = []
+    for src in _member_sources(a, labels):
+        # the next rank's first h rows (each rank sends its own left)
+        right = mesh.comm.exchange(src[:, :h], None)[1] if h else None
+        sources.append(torch.cat([src, right if right is not None
+                                  else torch.zeros_like(src[:, :h])], 1))
+    out = _pair_merge(sources, a.k, nc, real, safe_leader, partner_of,
+                      has_partner)
+    whole = []
+    for t in (out[0], out[1], out[2][None, :], out[4]):
+        if t is None:
+            whole.append(None)
+            continue
+        g = mesh.comm.all_gather(t).view(mesh.world, t.shape[0], width)
+        rows = torch.cat([g[q, :, :counts[q]] for q in range(mesh.world)], 1)
+        whole.append(torch.nn.functional.pad(rows, (0, nc - rows.shape[1])))
+    cols, vals, rownnz, vals_t = whole
+    rownnz = rownnz[0]
+    info = torch.stack([rownnz.sum(), rownnz.max()]).to(torch.int64)
+    return cols, vals, rownnz, info, vals_t
 
 
 def galerkin_pair_ell(a: ELL, paired: torch.Tensor, labels: torch.Tensor,

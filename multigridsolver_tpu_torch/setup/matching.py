@@ -8,7 +8,12 @@ repeat until a round accepts nothing; leftovers become singletons.
 
 μ(i,j) is bitwise symmetric (strength.py) and the tie-break key is a
 function of the unordered edge, so the result is deterministic.  The loop
-reads one flag per round from the device.
+reads one flag per round from the device.  On a rank's rows of a mesh
+over ranks (``a.shard``) node indices are global, the neighbour fields
+come in through the halo (K4), and the host reads are collective: the
+round flag is an all-reduced max, the counts all-reduced sums, and the
+leader numbering continues the ranks before (an exclusive prefix of
+their leader counts), so the labels are those of one process.
 
 The reference CPU algorithm, an exact sequential greedy matching in CMK
 priority order, runs on the host: in C++ (``io/native.py``) on the setup
@@ -79,13 +84,14 @@ def mutual_match(a: ELL, strength: StrengthData,
     ``skipass_frac`` > 0: when the excluded rows reach ``skipass_frac`` ·
     n, no pair is formed and every other row is a singleton (the
     Fortran's skipass heuristic)."""
-    nodes = torch.arange(a.npad, dtype=torch.int32, device=a.device)
+    nodes = a.row_ids()
     undecided = ~strength.excluded
     skip = None
     if skipass_frac > 0.0:
         rows = a.row_mask()
-        n_excl = (strength.excluded & rows).sum()
-        skip = n_excl >= skipass_frac * rows.sum().clamp_min(1)
+        n_excl = ops.all_sum(a, (strength.excluded & rows).sum())
+        skip = n_excl >= skipass_frac * ops.all_sum(a, rows.sum()) \
+            .clamp_min(1)
         undecided = undecided & ~skip
     ehash = _edge_hash(a)
     paired = torch.full((a.npad,), -1, dtype=torch.int32, device=a.device)
@@ -98,7 +104,7 @@ def mutual_match(a: ELL, strength: StrengthData,
         accepted = mutual & avail
         paired = torch.where(accepted, prop, paired)
         avail = avail & ~mutual
-        if not bool(accepted.any()):
+        if not ops.all_any(a, accepted):
             break
     # leftovers (still available, not excluded) become singletons
     paired = torch.where(avail & undecided, nodes, paired)
@@ -112,18 +118,23 @@ def labels_from_pairs(paired: torch.Tensor, excluded: torch.Tensor,
     """Number aggregates by leader order (the leader is the smaller index
     of a pair) and label nodes.  Returns (labels, nc): labels[i] = -1 for
     excluded nodes, nc read back to the host."""
-    nodes = torch.arange(paired.shape[0], dtype=torch.int32,
-                         device=paired.device)
+    nodes = a.row_ids()
     active = (paired >= 0) & ~excluded
     leader = active & (paired >= nodes)
-    agg_of_leader = (torch.cumsum(leader.to(torch.int32), 0) - 1) \
+    mesh = ops.rank_mesh(a)
+    first = 0
+    if mesh is not None:
+        counts = mesh.rank_values(leader.sum())
+        first = counts[:mesh.rank].sum()
+        nc = int(counts.sum())
+    agg_of_leader = (torch.cumsum(leader.to(torch.int32), 0) - 1 + first) \
         .to(torch.int32)
     # a follower takes its partner's (the leader's) aggregate id
     agg_of_partner = ops.take_neighbor(a, agg_of_leader,
                                        idx=paired.clamp_min(0))
     labels = torch.where(leader, agg_of_leader, agg_of_partner)
     labels = torch.where(active, labels, -1).to(torch.int32)
-    return labels, int(leader.sum())
+    return labels, nc if mesh is not None else int(leader.sum())
 
 
 def greedy_match_host(a_csr, ktg: float, first_pass_excluded: np.ndarray,

@@ -201,8 +201,9 @@ def compute_strength(a: ELL, ktg: float, first_pass: bool,
             # zerors rule: when more than fracnegrcsum·n nodes have a
             # negative mean row+col sum, the DD exclusions are cancelled
             tol = _rel_eps(diag.dtype) * diag.abs()
-            neg = (((diag - si) < -tol) & rowmask).sum()
-            zerors = neg > fracnegrcsum * rowmask.sum().clamp_min(1)
+            neg = ops.all_sum(a, (((diag - si) < -tol) & rowmask).sum())
+            zerors = neg > fracnegrcsum * ops.all_sum(
+                a, rowmask.sum()).clamp_min(1)
             excl = excl & ~zerors
         if trspos > 0.0:
             excl = excl | trspos_mask(a, diag, trspos)

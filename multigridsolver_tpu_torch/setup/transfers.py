@@ -103,10 +103,16 @@ def repad_rows(e: ELL) -> ELL:
 
 def prolong_fast(tp: TransferPlan, xc: torch.Tensor,
                  out_len: int) -> torch.Tensor:
-    """P @ xc on K1."""
+    """P @ xc on K1 (a level sharded over ranks: ``parallel.
+    RankTransfer``, bound to its mesh)."""
+    if hasattr(tp, "mesh"):
+        return tp.prolong(xc, out_len)
     return gather.gather_spmv(tp.p_cols, tp.p_vals, xc)[:out_len]
 
 
 def restrict_fast(tp: TransferPlan, v: torch.Tensor) -> torch.Tensor:
-    """Pᵀ @ v on K1 over the members-ELL."""
+    """Pᵀ @ v on K1 over the members-ELL (a level sharded over ranks:
+    ``parallel.RankTransfer``)."""
+    if hasattr(tp, "mesh"):
+        return tp.restrict(v)
     return gather.gather_spmv(tp.m_cols, tp.m_vals, v)[: tp.nc_pad]

@@ -60,16 +60,27 @@ def solve_hierarchy(hier: Hierarchy, b, method: str = "bicgstab",
     ``b`` is a logical-size vector (numpy or torch); it is zero-padded to
     the finest operator's padded size (a row-sharded operator's, when the
     hierarchy is sharded) on its device, and the solution is returned
-    un-padded."""
+    un-padded.  On a hierarchy sharded over ranks (every rank calls) ``b``
+    is the whole vector on every rank, of which each keeps its own rows;
+    the solution is this rank's padded rows
+    (``parallel.multihost.host_read(x, mesh)[:n]`` reads it whole), and
+    the dot products are all-reduced."""
     if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}; one of "
                          f"{tuple(_METHODS)}")
     fn, preconditioned = _METHODS[method]
     a = hier.levels[0].a if hier.levels else hier.coarse.a
-    bp = pad_vector(b, a.npad, a.dtype, a.device)
+    mesh = hier.mesh
+    if mesh is None:
+        bp = pad_vector(b, a.npad, a.dtype, a.device)
+    else:
+        npad = a.npad * mesh.world
+        lo, hi = mesh.local_rows(npad)
+        bp = pad_vector(b, npad, a.dtype, a.device)[lo:hi].contiguous()
     res = fn(hier.matvec, bp, hier.precondition if preconditioned else None,
-             tol=tol, maxiter=maxiter)
-    return res._replace(x=res.x[: a.nrows])
+             tol=tol, maxiter=maxiter,
+             allsum=None if mesh is None else mesh.allreduce_sum)
+    return res._replace(x=res.x if mesh is not None else res.x[: a.nrows])
 
 
 def solve_refined(hier: Hierarchy, a_host, b, tol: float = 1e-8,
@@ -79,9 +90,13 @@ def solve_refined(hier: Hierarchy, a_host, b, tol: float = 1e-8,
     residual is taken in f64 on the host against the exact operator
     ``a_host`` (a host :class:`~..sparse.formats.CSR`), each correction
     A·dx = r is one :func:`solve_hierarchy` on the hierarchy's device to
-    ``inner_tol``, and x is accumulated in f64 on the host.
+    ``inner_tol``, and x is accumulated in f64 on the host.  A hierarchy
+    sharded over ranks is refused.
 
     Returns (x, relres, total_inner_iterations, outer_sweeps)."""
+    if hier.mesh is not None:
+        raise NotImplementedError("solve_refined takes a hierarchy in one "
+                                  "process, not one sharded over ranks")
     a_sp = a_host.to_scipy()
     b = np.asarray(b, dtype=np.float64)
     normb = np.linalg.norm(b)

@@ -112,6 +112,14 @@ class Hierarchy:
             return ops.spmv(self.levels[0].a, x)
         return ops.spmv(self.coarse.a, x)
 
+    @property
+    def mesh(self):
+        """The row mesh over ranks the finest level is split across, or
+        None (one process: its vectors are whole)."""
+        mesh = getattr(self.levels[0].a, "mesh", None) if self.levels \
+            else None
+        return mesh if mesh is not None and mesh.over_ranks else None
+
 
 def _coarse_correct(level: Level, hier: Hierarchy, idx: int,
                     r: torch.Tensor) -> torch.Tensor:
@@ -153,6 +161,8 @@ def _kcycle_accel(hier: Hierarchy, idx: int,
     """Notay K-cycle: ``kcycle_steps`` iterations of flexible CG
     preconditioned with the cycle at this level."""
     a = hier.levels[idx].a if idx < len(hier.levels) else hier.coarse.a
+    # a level split over ranks holds local rows: its dots are all-reduced
+    dot = a.mesh.dot if hasattr(a, "mesh") else torch.dot
     x = torch.zeros_like(b)
     r = b
     dirs: list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = []
@@ -160,10 +170,10 @@ def _kcycle_accel(hier: Hierarchy, idx: int,
         z = _cycle(hier, idx, r)
         p = z
         for (pj, apj, denom) in dirs:
-            p = p - (torch.dot(apj, p) / denom) * pj
+            p = p - (dot(apj, p) / denom) * pj
         ap = ops.spmv(a, p)
-        denom = torch.dot(p, ap)
-        alpha = torch.where(denom != 0.0, torch.dot(p, r) / denom, 0.0)
+        denom = dot(p, ap)
+        alpha = torch.where(denom != 0.0, dot(p, r) / denom, 0.0)
         x = x + alpha * p
         r = r - alpha * ap
         dirs.append((p, ap, denom))

@@ -9,7 +9,11 @@ the outer method AGMG pairs with K-cycles (whose inner FCG makes the
 preconditioner vary).  GMRES(m) reduces its Hessenberg matrix by Givens
 rotations, which give the residual at every Arnoldi step.
 
-Each iteration (for GMRES each Arnoldi step) reads the device once.  For
+Each iteration (for GMRES each Arnoldi step) reads the device once.
+On a row mesh over ranks every dot product and norm is a local one
+all-reduced: the caller passes the mesh's sum over ranks as ``allsum``
+(the identity when it is None, where norms are ``vector_norm``), and
+every rank takes the same branches on the same reduced scalars.  For
 BiCGStab the breakdown and convergence flags of the whole iteration come
 back in one small tensor: the second half-step (precondition s,
 multiply, ω) is computed before the early-exit test is known, and when
@@ -35,6 +39,15 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(v)
 
 
+def _reductions(allsum: Callable | None):
+    """(dot, norm) over the rows of every rank: torch's on one process,
+    the local ones summed by ``allsum`` over ranks."""
+    if allsum is None:
+        return torch.dot, _norm
+    return (lambda u, v: allsum(torch.dot(u, v)),
+            lambda v: torch.sqrt(allsum(torch.dot(v, v))))
+
+
 def _nz(x: torch.Tensor) -> torch.Tensor:
     """Guard exact-zero denominators (breakdowns are caught separately)."""
     tiny = 1e-300 if x.dtype == torch.float64 else 1e-30
@@ -43,22 +56,24 @@ def _nz(x: torch.Tensor) -> torch.Tensor:
 
 def bicgstab(matvec: Callable, b: torch.Tensor,
              precond: Callable | None = None, x0: torch.Tensor | None = None,
-             tol: float = 1e-6, maxiter: int = 10000) -> SolveResult:
+             tol: float = 1e-6, maxiter: int = 10000,
+             allsum: Callable | None = None) -> SolveResult:
     """Right-preconditioned BiCGStab (IML++ semantics)."""
     if precond is None:
         precond = lambda v: v
+    dot, norm = _reductions(allsum)
     x = torch.zeros_like(b) if x0 is None else x0
-    normb = _norm(b)
+    normb = norm(b)
     normb = torch.where(normb == 0.0, 1.0, normb)
     r = b - matvec(x)
     rtilde = r
-    resid = float(_norm(r) / normb)
+    resid = float(norm(r) / normb)
     if resid <= tol:
         return SolveResult(x=x, iterations=0, relres=resid, status=0)
     p = v = None
     rho_2 = alpha = omega = None
     for i in range(1, maxiter + 1):
-        rho_1 = torch.dot(rtilde, r)
+        rho_1 = dot(rtilde, r)
         if i == 1:
             p = r
         else:
@@ -66,18 +81,18 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
             p = r + beta * (p - omega * v)
         phat = precond(p)
         v = matvec(phat)
-        alpha = rho_1 / _nz(torch.dot(rtilde, v))
+        alpha = rho_1 / _nz(dot(rtilde, v))
         s = r - alpha * v
-        resid_s = _norm(s) / normb
+        resid_s = norm(s) / normb
         shat = precond(s)
         t = matvec(shat)
-        omega_new = torch.dot(t, s) / _nz(torch.dot(t, t))
+        omega_new = dot(t, s) / _nz(dot(t, t))
         r_new = s - omega_new * t
-        resid_new = _norm(r_new) / normb
+        resid_new = norm(r_new) / normb
         flags = torch.stack([
             (rho_1 == 0.0).to(resid_s.dtype), resid_s, resid_new,
             (omega_new == 0.0).to(resid_s.dtype),
-            _norm(r) / normb]).tolist()
+            norm(r) / normb]).tolist()
         rho_zero, rs, rn, om_zero, resid_r = flags
         if rho_zero:
             return SolveResult(x=x, iterations=i + 1, relres=resid_r,
@@ -97,61 +112,65 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
 
 def cg(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
        x0: torch.Tensor | None = None, tol: float = 1e-6,
-       maxiter: int = 10000) -> SolveResult:
+       maxiter: int = 10000, allsum: Callable | None = None) -> SolveResult:
     """Standard preconditioned CG (fixed preconditioner); one device read
     (the residual norm) per iteration."""
     if precond is None:
         precond = lambda v: v
+    dot, norm = _reductions(allsum)
     x = torch.zeros_like(b) if x0 is None else x0
-    normb = _norm(b)
+    normb = norm(b)
     normb = torch.where(normb == 0.0, 1.0, normb)
     r = b - matvec(x)
     z = precond(r)
     p = z
-    rz = torch.dot(r, z)
-    resid = float(_norm(r) / normb)
+    rz = dot(r, z)
+    resid = float(norm(r) / normb)
     i = 0
     while resid >= tol and i < maxiter:
         ap = matvec(p)
-        alpha = rz / _nz(torch.dot(p, ap))
+        alpha = rz / _nz(dot(p, ap))
         x = x + alpha * p
         r = r - alpha * ap
         z = precond(r)
-        rz_new = torch.dot(r, z)
+        rz_new = dot(r, z)
         p = z + (rz_new / _nz(rz)) * p
         rz = rz_new
         i += 1
-        resid = float(_norm(r) / normb)
+        resid = float(norm(r) / normb)
     return SolveResult(x=x, iterations=i, relres=resid,
                        status=0 if resid < tol else 1)
 
 
 def fcg(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
         x0: torch.Tensor | None = None, tol: float = 1e-6,
-        maxiter: int = 10000, truncate: int = 2) -> SolveResult:
+        maxiter: int = 10000, truncate: int = 2,
+        allsum: Callable | None = None) -> SolveResult:
     """Flexible CG with truncated orthogonalisation (Notay's FCG): each
     new direction is made A-orthogonal to the last ``truncate`` ones, so a
     varying preconditioner such as a K-cycle is allowed.  One device read
     (the residual norm) per iteration."""
     if precond is None:
         precond = lambda v: v
+    dot, norm = _reductions(allsum)
+    sums = allsum or (lambda t: t)
     x = torch.zeros_like(b) if x0 is None else x0
-    normb = _norm(b)
+    normb = norm(b)
     normb = torch.where(normb == 0.0, 1.0, normb)
     r = b - matvec(x)
     hp = b.new_zeros((truncate, b.shape[0]))
     hap = torch.zeros_like(hp)
     hden = b.new_ones((truncate,))
     hok = torch.zeros((truncate,), dtype=torch.bool, device=b.device)
-    resid = float(_norm(r) / normb)
+    resid = float(norm(r) / normb)
     i = 0
     while resid >= tol and i < maxiter:
         z = precond(r)
-        betas = torch.where(hok, (hap @ z) / hden, 0.0)
+        betas = torch.where(hok, sums(hap @ z) / hden, 0.0)
         p = z - betas @ hp
         ap = matvec(p)
-        den = torch.dot(p, ap)
-        alpha = torch.dot(p, r) / _nz(den)
+        den = dot(p, ap)
+        alpha = dot(p, r) / _nz(den)
         x = x + alpha * p
         r = r - alpha * ap
         # the newest direction first, the oldest dropped
@@ -160,14 +179,15 @@ def fcg(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
         hden = torch.cat([_nz(den)[None], hden[:-1]])
         hok = torch.cat([hok.new_ones((1,)), hok[:-1]])
         i += 1
-        resid = float(_norm(r) / normb)
+        resid = float(norm(r) / normb)
     return SolveResult(x=x, iterations=i, relres=resid,
                        status=0 if resid < tol else 1)
 
 
 def gmres(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
           x0: torch.Tensor | None = None, tol: float = 1e-6,
-          maxiter: int = 1000, restart: int = 30) -> SolveResult:
+          maxiter: int = 1000, restart: int = 30,
+          allsum: Callable | None = None) -> SolveResult:
     """Right-preconditioned restarted GMRES(m), m = ``restart``.
 
     Arnoldi with modified Gram-Schmidt on the device; the Hessenberg
@@ -180,18 +200,19 @@ def gmres(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
     residual."""
     if precond is None:
         precond = lambda v: v
+    dot, norm = _reductions(allsum)
     m = restart
     x = torch.zeros_like(b) if x0 is None else x0
     dt = np.float32 if b.dtype == torch.float32 else np.float64
-    normb_t = _norm(b)
+    normb_t = norm(b)
     normb_t = torch.where(normb_t == 0.0, 1.0, normb_t)
     r = b - matvec(x)
-    normb, beta0 = (dt(v) for v in torch.stack([normb_t, _norm(r)]).tolist())
+    normb, beta0 = (dt(v) for v in torch.stack([normb_t, norm(r)]).tolist())
     resid = dt(beta0 / normb)
     iters = 0
     while resid >= tol and iters < maxiter:
         r = b - matvec(x)
-        beta = _norm(r)
+        beta = norm(r)
         basis = [r / torch.where(beta == 0.0, 1.0, beta)]
         zs = []
         rmat = np.zeros((m + 1, m), dtype=dt)
@@ -204,10 +225,10 @@ def gmres(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
             w = matvec(z)
             hs = []
             for v in basis:            # modified Gram-Schmidt
-                hij = torch.dot(v, w)
+                hij = dot(v, w)
                 w = w - hij * v
                 hs.append(hij)
-            hjj = _norm(w)
+            hjj = norm(w)
             basis.append(w / torch.where(hjj == 0.0, 1.0, hjj))
             zs.append(z)
             read = torch.stack(hs + [hjj] + ([beta] if j == 0 else []))

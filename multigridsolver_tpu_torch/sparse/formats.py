@@ -199,7 +199,10 @@ class ELL:
     ``npad = mesh.ndev · npr`` rows in shards of ``npr``, each of which
     reads its own rows and ``h`` rows on either side (every stored column
     lies in that range).  Neighbour gathers then take the halo exchange
-    and K4 (``parallel/dist_setup.shard_ell_halo`` sets it).
+    and K4 (``parallel/dist_setup.shard_ell_halo`` sets it).  On a mesh
+    over ranks the arrays hold this rank's ``mesh.nlocal · npr`` rows
+    only, the first of them global row :attr:`row0`; column indices,
+    ``nrows`` and ``ncols`` stay global.
     """
 
     cols: torch.Tensor    # (K, npad) int32
@@ -235,15 +238,28 @@ class ELL:
         sl = torch.arange(self.k, dtype=torch.int32, device=self.device)
         return sl[:, None] < self.rownnz[None, :]
 
+    @property
+    def row0(self) -> int:
+        """The global index of the first stored row: 0 but on a rank's
+        rows of a mesh over ranks."""
+        if self.shard is None:
+            return 0
+        mesh, npr, _ = self.shard
+        return mesh.first_shard * npr
+
+    def row_ids(self) -> torch.Tensor:
+        """(npad,) int32 — the global index of every stored row."""
+        r0 = self.row0
+        return torch.arange(r0, r0 + self.npad, dtype=torch.int32,
+                            device=self.device)
+
     def row_iota(self) -> torch.Tensor:
         """(K, npad) int32 — the row index of every slot."""
-        ri = torch.arange(self.npad, dtype=torch.int32, device=self.device)
-        return ri[None, :].expand(self.k, self.npad)
+        return self.row_ids()[None, :].expand(self.k, self.npad)
 
     def row_mask(self) -> torch.Tensor:
         """(npad,) bool — True for logical (unpadded) rows."""
-        ri = torch.arange(self.npad, dtype=torch.int32, device=self.device)
-        return ri < self.nrows
+        return self.row_ids() < self.nrows
 
     def to_csr(self) -> CSR:
         """Host-side conversion back to CSR (drops padding)."""

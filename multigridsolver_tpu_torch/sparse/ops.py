@@ -39,7 +39,31 @@ def take_neighbor(a: ELL, x: torch.Tensor,
     mesh, npr, h = a.shard
     x = x.contiguous()
     return gather.take_sharded(idx.contiguous(), x, mesh.boundary_halo(x, h),
-                               npr, h)
+                               npr, h, base=a.row0)
+
+
+def rank_mesh(a):
+    """The row mesh over ranks whose rows of ``a`` this rank holds, or
+    None (``a`` whole in this process)."""
+    shard = getattr(a, "shard", None)
+    if shard is None or not shard[0].over_ranks:
+        return None
+    return shard[0]
+
+
+def all_sum(a, t: torch.Tensor) -> torch.Tensor:
+    """A sum over ``a``'s rows: ``t`` summed over the ranks that hold
+    them (``t`` itself when ``a`` is whole)."""
+    mesh = rank_mesh(a)
+    return t if mesh is None else mesh.allreduce_sum(t)
+
+
+def all_any(a, t: torch.Tensor) -> bool:
+    """``t.any()`` over all of ``a``'s rows, read on the host (a
+    collective read over ranks)."""
+    mesh = rank_mesh(a)
+    t = t.any()
+    return bool(t if mesh is None else mesh.allreduce_max(t))
 
 
 def take_member_rows(members: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -65,9 +89,15 @@ def spmv(a, x: torch.Tensor) -> torch.Tensor:
     exchanges, then one ``hyb_spmv_sharded`` launch).  ``x``: the padded
     column vector; invalid slots hold val 0, so no masking is needed.  A
     sharded ELL's ``x`` is the whole vector here, on one device, so its
-    SpMV is the plain K1 one."""
+    SpMV is the plain K1 one; one holding a rank's rows of a mesh over
+    ranks has none (``parallel.shard_hierarchy`` binds such a level to
+    its mesh)."""
     if hasattr(a, "mesh"):
         return a.spmv(x)
+    if rank_mesh(a) is not None:
+        raise NotImplementedError("an ELL holding a rank's rows has no "
+                                  "SpMV of its own; bind its level to the "
+                                  "mesh (parallel.shard_hierarchy)")
     if hasattr(a, "offsets"):
         from . import hybrid
         return hybrid.spmv(a, x)
@@ -206,9 +236,42 @@ def col_sum(a: ELL, absolute: bool = False, skip_diag: bool = False,
 
 def _scatter_cols(a: ELL, v: torch.Tensor,
                   init: torch.Tensor | None) -> torch.Tensor:
+    mesh = rank_mesh(a)
+    if mesh is not None:
+        return _scatter_cols_ranks(a, v, init, mesh)
     out = (torch.zeros((a.npad,), dtype=v.dtype, device=v.device)
            if init is None else init.clone())
     return out.index_add_(0, a.cols.reshape(-1).long(), v.reshape(-1))
+
+
+def _scatter_cols_ranks(a: ELL, v: torch.Tensor, init, mesh) -> torch.Tensor:
+    """:func:`_scatter_cols` on a rank's rows: the neighbour ranks' ``h``
+    boundary rows (cols and ``v``) come in through the row halo, and the
+    rows ``[row0 − h, row0 + nloc + h)`` scatter in slot-major order onto
+    the rank's own columns (the rest into a dump slot), so each column
+    adds the same terms in the same order as the whole scatter."""
+    h, n, r0 = a.shard[2], a.npad, a.row0
+    parts_c, parts_v = [a.cols], [v]
+    left_c, right_c = mesh.row_halo(a.cols, h)
+    left_v, right_v = mesh.row_halo(v, h)
+    dump = n + 2 * h
+    if h:
+        # a missing neighbour's rows scatter into the dump
+        parts_c = [left_c if left_c is not None
+                   else a.cols.new_full((a.k, h), r0 - h - 1),
+                   a.cols,
+                   right_c if right_c is not None
+                   else a.cols.new_full((a.k, h), r0 - h - 1)]
+        parts_v = [left_v if left_v is not None else v.new_zeros((a.k, h)),
+                   v,
+                   right_v if right_v is not None else v.new_zeros((a.k, h))]
+    cols = torch.cat(parts_c, 1).long() - (r0 - h)
+    cols = torch.where((cols >= 0) & (cols < n + 2 * h), cols, dump)
+    out = torch.zeros((dump + 1,), dtype=v.dtype, device=v.device)
+    if init is not None:
+        out[h:h + n] = init
+    out.index_add_(0, cols.reshape(-1), torch.cat(parts_v, 1).reshape(-1))
+    return out[h:h + n].clone()
 
 
 def _transposed_lookup(a: ELL, field: torch.Tensor | None = None):

@@ -248,6 +248,44 @@ def test_k4_matches_plain_version(device, dtype):
     assert g.launch_counts()["halo_fill"] == 1
 
 
+@pytest.mark.parametrize("dtype", WORD_DTYPES)
+def test_k4_and_halo_fill_on_a_ranks_block(device, dtype):
+    """A rank's block of the sharded poisson2d(200) ELL (4 shards, the
+    middle two held by this rank): the halo fill with the neighbour
+    ranks' edge slabs as its outer edges, K4 with the rank's first row as
+    its base, each bitwise its plain version and the one-process mesh's
+    halo and gather on every route; one outer edge alone, too."""
+    whole = shard_ell_halo(poisson2d(200).to_ell(dtype=torch.float32,
+                                                 device=device),
+                           RowMesh(4, device))
+    _, npr, h = whole.shard
+    lo_row, hi_row = npr, 3 * npr
+    rs = np.random.RandomState(19)
+    x = words(rs, whole.npad, dtype, device)
+    xl = x[lo_row:hi_row].contiguous()
+    left = x[lo_row - h:lo_row].contiguous()
+    right = x[hi_row:hi_row + h].contiguous()
+    g.reset_launch_counts()
+    halo = g.halo_fill(xl, 2, h, left, right)
+    assert torch.equal(halo, g.halo_fill_plain(xl, 2, h, left, right))
+    assert torch.equal(halo, g.halo_fill_plain(x, 4, h)[1:3])
+    for lo, hi in ((left, None), (None, right)):
+        assert torch.equal(g.halo_fill(xl, 2, h, lo, hi),
+                           g.halo_fill_plain(xl, 2, h, lo, hi))
+    cols = whole.cols[:, lo_row:hi_row].contiguous()
+    valid = whole.slot_mask()[:, lo_row:hi_row]
+    for idx, route in ((cols, "vector"), (unaligned(cols), "scalar")):
+        assert g.take_sharded_route(idx, xl, halo, npr, h) == route
+        out = g.take_sharded(idx, xl, halo, npr, h, base=lo_row)
+        ref = g.take_sharded_plain(idx, xl, halo, npr, h, lo_row)
+        assert torch.equal(out.view(-1).view(torch.uint8),
+                           ref.view(-1).view(torch.uint8))
+        assert torch.equal(out[valid], x[idx.long()][valid])
+    torch.cuda.synchronize()
+    assert g.launch_counts()["halo_fill"] == 3
+    assert g.launch_counts()["take_sharded"] == 2
+
+
 def unaligned(idx):
     """A copy of ``idx`` 4 bytes off 16-byte alignment."""
     buf = torch.empty(idx.numel() + 1, dtype=idx.dtype, device=idx.device)
