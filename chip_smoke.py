@@ -1258,7 +1258,171 @@ def phase_sharded(device, a, unsharded) -> dict:
     log("sharded vs unsharded f32 seconds (second unsharded run): "
         + " ".join(f"{k}={v:.4f}/{warm.get(k, 0.0):.4f}"
                    for k, v in times.items()))
-    return counts, hier_sh, times
+    kinds = phase_sharded_kinds(device, setup, unsharded)
+    return counts, hier_sh, times, kinds
+
+
+# every smoother kind but the main path's Chebyshev, on a sharded
+# hierarchy: the smoothers phase's K-cycles, held to the same counts
+SHARDED_KINDS = ("jacobi", "l1jacobi", "gs2", "ilu0")
+
+
+def level_routes(hs, nlevels: int) -> list:
+    """Per sharded level, how its SpMV and its smoother state's reach
+    off-shard x: ``none`` (own rows and the halo), ``exchange`` (the
+    index-list exchange) or ``all_gather`` (``parallel.halo.spmv_route``),
+    with the state's operator types."""
+    from multigridsolver_tpu_torch.parallel.halo import spmv_route
+    out = []
+    for lvl in hs.levels[:nlevels]:
+        sm = lvl.smoother
+        row = dict(level=spmv_route(lvl.a))
+        for name, op in (("lower", sm.lower), ("upper", sm.upper),
+                         ("L", sm.lmat), ("U", sm.umat)):
+            if op is not None:
+                row[name] = f"{type(op).__name__}:{spmv_route(op)}"
+        out.append(row)
+    return out
+
+
+def check_state_routes(tag: str, kind: str, routes: list) -> None:
+    """gs2's halves ride the halo (HaloOp), ilu0's L and U the index-list
+    exchange (ExchangeELL): the natural-order grid's routes."""
+    for lvl, row in enumerate(routes):
+        if kind == "gs2":
+            check(all(row[k].startswith("HaloOp:") for k in ("lower",
+                                                             "upper")),
+                  f"{tag}: level {lvl} gs2 halves not on the halo: {row}")
+        if kind == "ilu0":
+            check(all(row[k] == "ExchangeELL:exchange" for k in ("L", "U")),
+                  f"{tag}: level {lvl} ILU factors not on the exchange: "
+                  f"{row}")
+
+
+def phase_sharded_kinds(device, setup, unsharded) -> dict:
+    """jacobi, l1jacobi, gs2 and ilu0 on the sharded phase's setup (4
+    shards of one card, one process): the smoothers phase's K-cycle
+    (``KCYCLE``) with the two finest levels sharded, gs2's triangular
+    halves and ilu0's L and U bound to the mesh beside each level.  Each
+    held to the JAX CPU count of the unsharded K-cycle
+    (``SMOOTHER_EXPECT``), relres and the float32 true-residual floor;
+    the route of every sharded level and of its state printed; each
+    run's launches counted from 0 (the state's SpMVs on
+    ``hyb_spmv_sharded``).  Returns the four runs' launches, summed."""
+    from collections import Counter
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.parallel import RowMesh, shard_hierarchy
+    from multigridsolver_tpu_torch.solve.api import solve_hierarchy
+    from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
+    from multigridsolver_tpu_torch.utils.config import BENCH_NDEV as NDEV
+    mesh = RowMesh(NDEV, device)
+    b, a_sp = unsharded["b"], unsharded["a_sp"]
+    total: Counter = Counter()
+    for kind in SHARDED_KINDS:
+        tag = f"sharded {kind} float32 ndev={NDEV}"
+        g.reset_launch_counts()
+        hier, t_h = timed(lambda: build_hierarchy(
+            setup.matrices[0], setup.level_labels, setup.matrices[1:],
+            **dict(KCYCLE, smoother_kind=kind)))
+        hs, t_sh = timed(lambda: shard_hierarchy(hier, mesh,
+                                                 shard_levels=2))
+        res, t_s = timed(lambda: solve_hierarchy(
+            hs, b, method="bicgstab", tol=1e-6, maxiter=200))
+        counts = g.launch_counts()
+        routes = level_routes(hs, 2)
+        row = solve_checks(tag, res, a_sp, b)
+        log(f"{tag}: " + json.dumps(dict(
+            row, hierarchy_s=t_h, shard_hierarchy_s=t_sh, solve_s=t_s)))
+        for lvl, r in enumerate(routes):
+            log(f"{tag} level {lvl} routes: {json.dumps(r)}")
+        log(f"{tag} launches: {json.dumps(counts)}")
+        check_count(tag, res.iterations, SMOOTHER_EXPECT["poisson"][kind])
+        check_state_routes(tag, kind, routes)
+        check(counts["hyb_spmv_sharded"] > 0 and counts["hyb_spmv"] > 0,
+              f"{tag}: the sharded or the replicated levels' SpMV kernel "
+              "was not launched")
+        total.update(counts)
+    return dict(total)
+
+
+# one symmetric random permutation of the main path's grid: the finest
+# level's halo then exceeds a shard, and its gathers and SpMVs over ranks
+# read the all-gathered field
+PERMUTATION_SEED = 0
+# over ranks the permuted grid shards its finest level alone: every SpMV
+# there pays an all-gather
+PERMUTED_SHARD_LEVELS = 1
+
+
+def permuted_problem():
+    """poisson1000 under the permutation of ``RandomState(0)`` (host
+    CSR)."""
+    import numpy as np
+    from multigridsolver_tpu_torch.cli.generators import poisson2d
+    from multigridsolver_tpu_torch.sparse.formats import CSR
+    from multigridsolver_tpu_torch.utils.config import BENCH_GRID
+    m = poisson2d(BENCH_GRID).to_scipy()
+    p = np.random.RandomState(PERMUTATION_SEED).permutation(m.shape[0])
+    return CSR.from_scipy(m[p][:, p].tocsr())
+
+
+def phase_permuted(device) -> dict:
+    """The permuted poisson1000 f32, unsharded in one process: setup,
+    hierarchy and solve of the main path's configuration.  The multicard
+    phase holds its all-gather route to these levels, labels and
+    count."""
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
+    from multigridsolver_tpu_torch.solve.api import solve_hierarchy
+    from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
+    from multigridsolver_tpu_torch.utils.config import (BENCH_HIERARCHY,
+                                                        bench_config)
+    tag = "permuted poisson1000 float32 (one process, unsharded)"
+    a, t_gen = timed(permuted_problem)
+    b = np.random.RandomState(0).rand(a.nrows)
+    ell, t_ell = timed(lambda: a.to_ell(dtype=torch.float32, device=device))
+    setup, t_setup = timed(lambda: build_amg_setup(ell, bench_config()))
+    hier, t_hier = timed(lambda: build_hierarchy(
+        setup.matrices[0], setup.level_labels, setup.matrices[1:],
+        **BENCH_HIERARCHY))
+    res, t_solve = timed(lambda: solve_hierarchy(
+        hier, b, method="bicgstab", tol=1e-6, maxiter=200))
+    a_sp = a.to_scipy()
+    row = solve_checks(tag, res, a_sp, b)
+    levels = [m.nrows for m in setup.matrices]
+    log(f"{tag}: levels {levels} lanes on level 0: "
+        f"{len(hier.levels[0].a.offsets)} remainder K="
+        f"{hier.levels[0].a.ell.k}; " + json.dumps(dict(
+            row, permute_s=t_gen, to_ell_s=t_ell, setup_s=t_setup,
+            hierarchy_s=t_hier, solve_s=t_solve)))
+    return dict(levels=levels, iterations=res.iterations,
+                labels=[l.cpu() for l in setup.level_labels])
+
+
+def csky_reference(device) -> dict:
+    """csky3d80 f32's one-process setup and 1e-6 count, for the
+    multicard phase when the csky phase does not run
+    (``--multicard-only``)."""
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.cli.generators import csky3d
+    from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
+    from multigridsolver_tpu_torch.solve.api import solve_hierarchy
+    from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
+    from multigridsolver_tpu_torch.utils.config import (BENCH_HIERARCHY,
+                                                        CSKY_GRID,
+                                                        csky_config)
+    a = csky3d(CSKY_GRID)
+    ell = a.to_ell(dtype=torch.float32, device=device, with_transpose=True)
+    setup = build_amg_setup(ell, csky_config())
+    hier = build_hierarchy(setup.matrices[0], setup.level_labels,
+                           setup.matrices[1:], **BENCH_HIERARCHY)
+    res = solve_hierarchy(hier, np.random.RandomState(0).rand(a.nrows),
+                          method="bicgstab", tol=1e-6, maxiter=200)
+    check(res.iterations == CSKY_EXPECT["iterations"],
+          f"csky3d80 reference: {res.iterations} iterations")
+    return dict(setup=setup)
 
 
 def old_sharded_route(op, x):
@@ -1302,19 +1466,13 @@ def phase_sharded_spmv(device, hier_sh, unsharded, res) -> None:
     import torch
     from multigridsolver_tpu_torch.ops import gather as g
     from multigridsolver_tpu_torch.parallel import halo_width
-    from multigridsolver_tpu_torch.parallel.exchange import exchange_recv
     rs = np.random.RandomState(2)
     for lvl in (1, 0):
         op = hier_sh.levels[lvl].a
-        mesh = op.mesh
-        ndev, w = mesh.ndev, halo_width(op.a)
+        ndev, w = op.mesh.ndev, halo_width(op.a)
         x = torch.from_numpy(rs.rand(op.npad)).to(device, torch.float32)
-        halo = mesh.boundary_halo(x, w) if w else None
-        recv = exchange_recv(x.view(ndev, -1), op.ex_send_idx, mesh) \
-            if op.ex_L else None
-        args = (op.a.dvals, op.a.lanes, x, ndev)
-        kw = dict(halo=halo, cols=op.rest_cols, vals=op.rest_vals,
-                  recv=recv, route=op.route)
+        args, kw = op.kernel_args(x)
+        recv = kw["recv"]
         y = g.hyb_spmv_sharded(*args, **kw)
         check_bits(y, g.hyb_spmv_sharded_plain(*args, **kw),
                    f"hyb_spmv_sharded level {lvl}")
@@ -1333,20 +1491,13 @@ def phase_sharded_spmv(device, hier_sh, unsharded, res) -> None:
             f" D={op.a.lanes.d} w={w} K={K} remainder={op.route} "
             f"recv={0 if recv is None else recv.shape[1]} route={route} "
             "bitwise_plain=True bitwise_old_route=True")
-        wb = x.element_size()
-        entries = int((op.a.dvals != 0).sum())
-        nbytes = (op.a.dvals.numel() + 2 * op.npad) * wb
-        for t in (halo, recv):
-            nbytes += 0 if t is None else t.numel() * wb
-        if K:
-            entries += int((op.rest_vals != 0).sum())
-            nbytes += op.rest_cols.numel() * (4 + wb)
+        nbytes, flops = sharded_spmv_bound(args, kw)
         record(res, "hyb_spmv_sharded",
                f"level {lvl} f32 ndev={ndev} D={op.a.lanes.d} w={w} K={K} "
                f"remainder={op.route} route={route}", 0.0,
                lambda: g.hyb_spmv_sharded(*args, **kw),
                lambda: g.hyb_spmv_sharded_plain(*args, **kw),
-               lambda: torch.mv(csr, x), nbytes, 2 * entries,
+               lambda: torch.mv(csr, x), nbytes, flops,
                extra={"old_route_ms": lambda: old_sharded_route(op, x),
                       "op_spmv_ms": lambda: op.spmv(x)})
 
@@ -1383,7 +1534,7 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_multicard(unsharded, sharded_times, res,
+def phase_multicard(unsharded, sharded_times, res, csky, permuted,
                     ranks: int = MULTICARD_RANKS,
                     spr: int = MULTICARD_SHARDS_PER_RANK) -> dict:
     """The main path over ranks: two rank processes of this script, joined
@@ -1396,8 +1547,13 @@ def phase_multicard(unsharded, sharded_times, res,
     count, relres and the float32 true-residual floor; the replicated
     levels identical on both ranks; K4, the halo fill and the sharded SpMV
     launched on each rank and bitwise their plain versions on its local
-    block.  A rank that fails or outlives the timeout fails the phase.
-    Returns the launch counts of both ranks' main path, summed."""
+    block.  Then, in the same rank processes (``multicard_cells``): every
+    smoother kind on that setup, csky3d80 on the union route (held to the
+    one-process ``csky`` run's labels and the anchor) and the permuted
+    grid on the all-gather route (held to ``permuted``, its one-process
+    run).  A rank that fails or outlives the timeout fails the phase.
+    Returns the launch counts of both ranks by path (the main path, the
+    kinds, csky, the permuted grid), each summed over the ranks."""
     import tempfile
     import numpy as np
     import torch
@@ -1497,11 +1653,120 @@ def phase_multicard(unsharded, sharded_times, res,
         log(f"{tag} rank {rk['rank']} vs one-process sharded seconds: "
             + " ".join(f"{k}={v:.4f}/{sharded_times.get(k, float('nan')):.4f}"
                        for k, v in rk["times"].items()))
-    log(f"{tag}: phase wall {wall:.3f} s (the ranks' starts included)")
     for name, recs in docs[0]["kernels"].items():
         res.setdefault(name, {"max_abs_err": 0.0})["rank_block"] = recs
-    return {name: sum(rk["launches"][name] for rk in docs)
-            for name in docs[0]["launches"]}
+    paths = multicard_cells(tag, docs, whole, csky, permuted)
+    log(f"{tag}: phase wall {wall:.3f} s (the ranks' starts and every "
+        "cell included)")
+
+    def summed(launches):
+        return {name: sum(c[name] for c in launches)
+                for name in docs[0]["launches"]}
+    return {"multicard": summed([rk["launches"] for rk in docs]),
+            **{f"multicard_{p}": summed(c) for p, c in paths.items()}}
+
+
+def multicard_cells(tag, docs, whole, csky, permuted) -> dict:
+    """The multicard phase's further cells, held rank by rank: each
+    smoother kind's count (``SMOOTHER_EXPECT``), relres, true residual
+    under the float32 floor and one replicated digest on every rank;
+    csky3d80's anchor levels and count and the one-process labels,
+    bitwise; the permuted grid's all-gather route on its finest level
+    and its one-process levels, labels and count; the route of every
+    sharded level; each new route's bytes per SpMV.  Returns each cell's
+    launches per rank."""
+    import torch
+    paths = {"kinds": [], "csky": [], "permuted": []}
+    for kind in SHARDED_KINDS:
+        ktag = f"{tag} {kind}"
+        for rk in docs:
+            got = rk["kinds"][kind]
+            log(f"{ktag} rank {rk['rank']}: " + json.dumps(
+                {k: got[k] for k in ("iterations", "relres", "status",
+                                     "true_relres", "storage_floor",
+                                     "times")}))
+            for lvl, r in enumerate(got["routes"]):
+                log(f"{ktag} rank {rk['rank']} level {lvl} routes: "
+                    f"{json.dumps(r)}")
+            log(f"{ktag} rank {rk['rank']} launches: "
+                f"{json.dumps(got['launches'])}")
+            check(got["status"] == 0 and got["relres"] < 1e-6,
+                  f"{ktag}: rank {rk['rank']} status {got['status']} "
+                  f"relres {got['relres']}")
+            check(got["true_relres"] < 1e-5 + 2 * got["storage_floor"],
+                  f"{ktag}: true residual {got['true_relres']} >= 1e-5 + "
+                  f"2 * {got['storage_floor']}")
+            check_count(f"{ktag} rank {rk['rank']}", got["iterations"],
+                        SMOOTHER_EXPECT["poisson"][kind])
+            check_state_routes(ktag, kind, got["routes"])
+            check(got["launches"]["hyb_spmv_sharded"] > 0,
+                  f"{ktag}: no sharded SpMV on rank {rk['rank']}")
+        digests = {rk["kinds"][kind]["digest"] for rk in docs}
+        check(len(digests) == 1, f"{ktag}: the replicated levels (smoother "
+              f"state included) differ between ranks: {digests}")
+        log(f"{ktag}: count {docs[0]['kinds'][kind]['iterations']} = the "
+            f"JAX CPU anchor {SMOOTHER_EXPECT['poisson'][kind]} on every "
+            f"rank; one replicated SHA-256 with its smoother state "
+            f"({digests.pop()[:16]}...)")
+        paths["kinds"] += [rk["kinds"][kind]["launches"] for rk in docs]
+    for cell, want_levels, want_labels, want_its in (
+            ("csky", CSKY_EXPECT["levels"],
+             [l.cpu() for l in csky["setup"].level_labels],
+             CSKY_EXPECT["iterations"]),
+            ("permuted", permuted["levels"], permuted["labels"],
+             permuted["iterations"])):
+        ctag = f"{tag} {cell}"
+        for rk in docs:
+            got = rk[cell]
+            log(f"{ctag} rank {rk['rank']}: " + json.dumps(
+                {k: got[k] for k in ("levels", "iterations", "relres",
+                                     "status", "true_relres",
+                                     "storage_floor", "halo", "times")}))
+            for lvl, r in enumerate(got["routes"]):
+                log(f"{ctag} rank {rk['rank']} level {lvl} routes: "
+                    f"{json.dumps(r)}")
+            log(f"{ctag} rank {rk['rank']} launches: "
+                f"{json.dumps(got['launches'])}")
+            check(got["levels"] == want_levels,
+                  f"{ctag}: levels {got['levels']} differ from "
+                  f"{want_levels}")
+            check(got["status"] == 0 and got["relres"] < 1e-6
+                  and got["iterations"] == want_its,
+                  f"{ctag}: rank {rk['rank']} took {got['iterations']} "
+                  f"iterations (status {got['status']}, relres "
+                  f"{got['relres']}), the one-process run {want_its}")
+            check(got["launches"]["hyb_spmv_sharded"] > 0,
+                  f"{ctag}: no sharded SpMV on rank {rk['rank']}")
+            if cell == "csky":
+                check(got["halo"] is not None
+                      and got["launches"]["take_sharded"] > 0
+                      and got["launches"]["take_rows_many"] > 0,
+                      f"{ctag}: the finest setup did not take K4 and K3")
+            else:
+                check(got["halo"] is None and got["routes"][0]["level"]
+                      == "all_gather" and got["launches"]["take"] > 0
+                      and got["launches"]["take_sharded"] == 0,
+                      f"{ctag}: the finest level did not take the "
+                      "all-gather route (K2 on the gathered field)")
+            paths[cell].append(got["launches"])
+        mine = whole[f"{cell}_labels"]
+        check(len(mine) == len(want_labels),
+              f"{ctag}: {len(mine)} label vectors, the one-process run "
+              f"{len(want_labels)}")
+        for lvl, (got, ref) in enumerate(zip(mine, want_labels)):
+            n = want_levels[lvl]
+            check(torch.equal(got[:n].cpu(), ref[:n].cpu()),
+                  f"{ctag}: level {lvl} labels differ from the one-process "
+                  "run")
+        log(f"{ctag}: levels {want_levels}, {want_its} iterations and "
+            "labels bitwise the one-process run's on every level")
+    for rk in docs:
+        for what, sent in rk["new_route_bytes"].items():
+            log(f"{tag} rank {rk['rank']} {what}: bytes handed to the "
+                f"transport per call (measured) {json.dumps(sent)}")
+        log(f"{tag} rank {rk['rank']} cell walls s: "
+            f"{json.dumps(rk['cell_walls'])}")
+    return paths
 
 
 def multicard_kernels(mesh, fine, hs, mats, timing: bool) -> dict:
@@ -1515,8 +1780,7 @@ def multicard_kernels(mesh, fine, hs, mats, timing: bool) -> dict:
     import numpy as np
     import torch
     from multigridsolver_tpu_torch.ops import gather as g
-    from multigridsolver_tpu_torch.parallel import halo_width, repad_ell
-    from multigridsolver_tpu_torch.parallel.exchange import exchange_recv
+    from multigridsolver_tpu_torch.parallel import repad_ell
     rs = np.random.RandomState(3 + mesh.rank)
     _, npr, h = fine.shard
     nl, first = mesh.nlocal, mesh.first_shard
@@ -1546,26 +1810,15 @@ def multicard_kernels(mesh, fine, hs, mats, timing: bool) -> dict:
     spmvs = []
     for lvl in (1, 0):
         op = hs.levels[lvl].a
-        w = halo_width(op.a)
         xv = torch.from_numpy(rs.rand(op.npad)).to(dev, torch.float32)
-        hv = mesh.boundary_halo(xv, w) if w else None
-        route, recv = op.route, None
-        if op.ex_L:
-            recv = exchange_recv(xv.view(nl, -1), op.ex_send_idx, mesh)
-        elif route == "all_gather":
-            recv = mesh.all_gather(xv.view(nl, -1)).expand(nl, -1) \
-                .contiguous()
-            route = "exchange"
-        args = (op.a.dvals, op.a.lanes, xv, nl)
-        kw = dict(halo=hv, cols=op.rest_cols, vals=op.rest_vals, recv=recv,
-                  route=route)
+        args, kw = op.kernel_args(xv)
         y = g.hyb_spmv_sharded(*args, **kw)
         check_bits(y, g.hyb_spmv_sharded_plain(*args, **kw),
                    f"hyb_spmv_sharded level {lvl} on a rank's block")
         check_bits(op.spmv(xv), y, f"HaloOp.spmv level {lvl} on a rank's "
                    "block")
         xw = mesh.all_gather(xv.view(nl, -1))
-        spmvs.append((lvl, op, xv, xw, hv, recv, args, kw))
+        spmvs.append((lvl, op, xw, args, kw))
     res: dict = {}
     if timing:
         w4 = x.element_size()
@@ -1594,7 +1847,7 @@ def multicard_kernels(mesh, fine, hs, mats, timing: bool) -> dict:
             lambda: g.take_sharded_plain(idx, x, halo, npr, h, r0), library,
             idx.numel() * (4 + w4) + touched(ext_idx) * w4)]
         recs = res.setdefault("hyb_spmv_sharded", [])
-        for lvl, op, xv, xw, hv, recv, args, kw in spmvs:
+        for lvl, op, xw, args, kw in spmvs:
             ell = repad_ell(mats[lvl], xw.shape[0])
             lo_r, hi_r = mesh.local_rows(xw.shape[0])
             csr = csr_of(ell.cols[:, lo_r:hi_r], ell.vals[:, lo_r:hi_r],
@@ -1604,14 +1857,9 @@ def multicard_kernels(mesh, fine, hs, mats, timing: bool) -> dict:
                                  atol=1e-4),
                   f"level {lvl}: the cuSPARSE yardstick computes another "
                   "function")
-            entries = int((op.a.dvals != 0).sum())
-            nbytes = (op.a.dvals.numel() + 2 * op.npad) * w4
-            for t in (hv, recv):
-                nbytes += 0 if t is None else t.numel() * w4
+            nbytes, flops = sharded_spmv_bound(args, kw)
+            hv = kw["halo"]
             K = 0 if op.rest_cols is None else op.rest_cols.shape[1]
-            if K:
-                entries += int((op.rest_vals != 0).sum())
-                nbytes += op.rest_cols.numel() * (4 + w4)
             recs.append(record(
                 {}, "hyb_spmv_sharded", f"rank block level {lvl} f32 "
                 f"nlocal={nl} npr={op.npad // nl} D={op.a.lanes.d} "
@@ -1619,11 +1867,249 @@ def multicard_kernels(mesh, fine, hs, mats, timing: bool) -> dict:
                 f"remainder={op.route}", 0.0,
                 lambda: g.hyb_spmv_sharded(*args, **kw),
                 lambda: g.hyb_spmv_sharded_plain(*args, **kw),
-                lambda: torch.mv(csr, xw), nbytes, 2 * entries))
+                lambda: torch.mv(csr, xw), nbytes, flops))
     torch.cuda.synchronize()
     # the other rank waits here while rank 0 times
     mesh.allreduce_sum(torch.zeros((1,), device=dev))
     return res
+
+
+def true_residual(a_sp, b, x) -> tuple[float, float]:
+    """The float64 relative residual of ``x`` on the host, and what
+    storing x in float32 alone allows (``check_solution``'s floor)."""
+    import numpy as np
+    import torch
+    nb = np.linalg.norm(b)
+    return (float(np.linalg.norm(b - a_sp @ x) / nb),
+            float(torch.finfo(torch.float32).eps / 2
+                  * np.linalg.norm(abs(a_sp) @ np.abs(x)) / nb))
+
+
+def sharded_spmv_bound(args, kw) -> tuple[int, int]:
+    """Bytes one ``hyb_spmv_sharded`` launch must move (lanes, x and y,
+    the halo and exchange buffers, the remainder's indices and values,
+    each once) and its multiply-adds' operations."""
+    dvals, lanes, x = args[:3]
+    w4 = x.element_size()
+    nbytes, entries = 2 * x.numel() * w4, 0
+    if dvals is not None and lanes.d:
+        nbytes += dvals.numel() * w4
+        entries += int((dvals != 0).sum())
+    for t in (kw.get("halo"), kw.get("recv")):
+        nbytes += 0 if t is None else t.numel() * w4
+    if kw.get("cols") is not None:
+        nbytes += kw["cols"].numel() * (4 + w4)
+        entries += int((kw["vals"] != 0).sum())
+    return nbytes, 2 * entries
+
+
+def rank_hierarchy(mesh, whole, a_sp, b, hier_kw, shard_levels: int):
+    """``build_hierarchy`` → ``shard_hierarchy`` → ``check_replicated``
+    → ``solve_hierarchy`` over the ranks, on a setup made whole
+    (``gather_setup``): the count, relres, the true residual on the host
+    and its float32 floor, the replicated digest, the routes and walls;
+    returns them with the whole and the sharded hierarchy."""
+    from multigridsolver_tpu_torch.parallel import (check_replicated,
+                                                    host_read,
+                                                    shard_hierarchy)
+    from multigridsolver_tpu_torch.solve.api import solve_hierarchy
+    from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
+    hier, t_h = timed(lambda: build_hierarchy(
+        whole.matrices[0], whole.level_labels, whole.matrices[1:],
+        **hier_kw))
+    hs, t_sh = timed(lambda: shard_hierarchy(hier, mesh,
+                                             shard_levels=shard_levels))
+    digest, t_c = timed(lambda: check_replicated(hs, mesh, shard_levels))
+    res, t_s = timed(lambda: solve_hierarchy(
+        hs, b, method="bicgstab", tol=1e-6, maxiter=200))
+    x = host_read(res.x, mesh)[:a_sp.shape[0]]
+    true_res, floor = true_residual(a_sp, b, x)
+    doc = dict(levels=[m.nrows for m in whole.matrices],
+               iterations=res.iterations, relres=res.relres,
+               status=res.status, true_relres=true_res,
+               storage_floor=floor, digest=digest,
+               routes=level_routes(hs, shard_levels),
+               times=dict(hierarchy=t_h, shard_hierarchy=t_sh,
+                          check_replicated=t_c, solve=t_s))
+    return doc, hier, hs
+
+
+def rank_cell(mesh, a, b, ell_fn, cfg, hier_kw, shard_levels: int):
+    """One configuration over the ranks through the entry points:
+    ``build_amg_setup_sharded`` → ``gather_setup`` → ``rank_hierarchy``,
+    its launches counted from 0 and its walls.  Returns the cell's
+    record, the sharded setup, the whole one and the sharded
+    hierarchy."""
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.parallel import (build_amg_setup_sharded,
+                                                    gather_setup)
+    g.reset_launch_counts()
+    ell, t_ell = timed(ell_fn)
+    setup, t_setup = timed(lambda: build_amg_setup_sharded(ell, cfg, mesh))
+    whole, t_gather = timed(lambda: gather_setup(setup, ell, mesh))
+    doc, _, hs = rank_hierarchy(mesh, whole, a.to_scipy(), b, hier_kw,
+                                shard_levels)
+    doc.update(launches=g.launch_counts(), halo=setup.matrices[0].shard[2],
+               times=dict(to_ell=t_ell, setup=t_setup,
+                          gather_setup=t_gather, **doc["times"]))
+    return doc, setup, whole, hs
+
+
+def multicard_kinds(mesh, whole, a, b) -> tuple[dict, dict]:
+    """jacobi, l1jacobi, gs2 and ilu0 over the ranks: the smoothers
+    phase's K-cycle on the main path's setup, two sharded levels, each
+    rank keeping its rows of the level and of its smoother state (gs2's
+    halves on the halo, ilu0's L and U on the index-list exchange).  Per
+    kind ``rank_hierarchy``'s record and its launches; returns them and
+    the gs2 and ilu0 hierarchies."""
+    from multigridsolver_tpu_torch.ops import gather as g
+    a_sp = a.to_scipy()
+    out, hiers = {}, {}
+    for kind in SHARDED_KINDS:
+        g.reset_launch_counts()
+        doc, hier, hs = rank_hierarchy(mesh, whole, a_sp, b,
+                                       dict(KCYCLE, smoother_kind=kind), 2)
+        out[kind] = dict(doc, launches=g.launch_counts())
+        if kind in ("gs2", "ilu0"):
+            hiers[kind] = (hier, hs)
+    return out, hiers
+
+
+def multicard_state_kernels(mesh, hiers, mats, timing: bool):
+    """``hyb_spmv_sharded`` on the new operands of a rank's block: gs2's
+    lower and upper halves (one-sided halo) and ilu0's L and U (index-list
+    exchange) on levels 0 and 1, each launch bitwise its plain version on
+    the buffers received from the other rank; the bytes each rank hands
+    the transport per SpMV; on rank 0 (``timing``) each timed beside its
+    plain version, cuSPARSE on this rank's rows of the same triangle or
+    factor (reading the whole x) and its bound."""
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.parallel import repad_ell
+    rs = np.random.RandomState(11 + mesh.rank)
+    comm = mesh.comm
+    recs, sent = [], {}
+    for lvl in (0, 1):
+        (gh, gs), (ih, ist) = hiers["gs2"], hiers["ilu0"]
+        ops_ = [("gs2 lower", gs.levels[lvl].smoother.lower, mats[lvl],
+                 "lower"),
+                ("gs2 upper", gs.levels[lvl].smoother.upper, mats[lvl],
+                 "upper"),
+                ("ilu0 L", ist.levels[lvl].smoother.lmat,
+                 ih.levels[lvl].smoother.lmat, "factor"),
+                ("ilu0 U", ist.levels[lvl].smoother.umat,
+                 ih.levels[lvl].smoother.umat, "factor")]
+        for name, op, ref, part in ops_:
+            xv = torch.from_numpy(rs.rand(op.npad)).to(mesh.device,
+                                                       torch.float32)
+            comm.reset_counts()
+            args, kw = op.kernel_args(xv)
+            torch.cuda.synchronize()
+            sent[f"level {lvl} {name}"] = dict(comm.sent)
+            y = g.hyb_spmv_sharded(*args, **kw)
+            check_bits(y, g.hyb_spmv_sharded_plain(*args, **kw),
+                       f"hyb_spmv_sharded {name} level {lvl} on a rank's "
+                       "block")
+            check_bits(op.spmv(xv), y, f"{name} level {lvl} spmv")
+            xw = mesh.gather_rows(xv)
+            if not timing:
+                continue
+            ell = repad_ell(ref, xw.shape[0])
+            lo, hi = mesh.local_rows(xw.shape[0])
+            ri = ell.row_iota()
+            keep = ell.slot_mask() & {
+                "lower": ell.cols < ri, "upper": ell.cols > ri,
+                "factor": ell.vals != 0}[part]
+            csr = csr_of(ell.cols[:, lo:hi], ell.vals[:, lo:hi],
+                         keep[:, lo:hi], xw.shape[0])
+            check(torch.allclose(torch.mv(csr, xw), y, rtol=1e-4,
+                                 atol=1e-4),
+                  f"{name} level {lvl}: the cuSPARSE yardstick computes "
+                  "another function")
+            nbytes, flops = sharded_spmv_bound(args, kw)
+            halo = kw.get("halo")
+            recs.append(record(
+                {}, "hyb_spmv_sharded", f"rank block level {lvl} {name} "
+                f"f32 nlocal={mesh.nlocal} npr={op.npad // mesh.nlocal} "
+                f"D={args[1].d} w={0 if halo is None else halo.shape[2]} "
+                f"K={0 if kw['cols'] is None else kw['cols'].shape[1]} "
+                f"route={kw['route']}", 0.0,
+                lambda: g.hyb_spmv_sharded(*args, **kw),
+                lambda: g.hyb_spmv_sharded_plain(*args, **kw),
+                lambda: torch.mv(csr, xw), nbytes, flops))
+    torch.cuda.synchronize()
+    # the other rank waits here while rank 0 times
+    mesh.allreduce_sum(torch.zeros((1,), device=mesh.device))
+    return recs, sent
+
+
+def multicard_gathered_kernels(mesh, fine, op, ell, timing: bool):
+    """The permuted grid's all-gather route on a rank's block: K2 on the
+    all-gathered finest level (``a.cols`` into the whole field) bitwise
+    its plain version and a gather from the whole x; the level-0 SpMV's
+    one launch bitwise its plain version; the bytes each rank hands the
+    transport per gather and per SpMV; on rank 0 both timed beside their
+    plain versions, library calls (the SpMV's: cuSPARSE on this rank's
+    rows of the level's whole ELL ``ell``, reading the whole x) and
+    bounds."""
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.parallel import repad_ell
+    rs = np.random.RandomState(21 + mesh.rank)
+    comm = mesh.comm
+    x = torch.from_numpy(rs.rand(fine.npad)).to(mesh.device, torch.float32)
+    comm.reset_counts()
+    xg = mesh.gather_rows(x)
+    torch.cuda.synchronize()
+    sent = {"level 0 gather": dict(comm.sent)}
+    idx = fine.cols
+    out = g.take(idx, xg)
+    check_bits(out, g.take_plain(idx, xg), "K2 on the all-gathered finest "
+               "level")
+    valid = fine.slot_mask()
+    check(torch.equal(torch.where(valid, out, 0.0),
+                      torch.where(valid, xg[idx.long()], 0.0)),
+          "K2 on the all-gathered level differs from a gather from the "
+          "whole x")
+    xv = torch.from_numpy(rs.rand(op.npad)).to(mesh.device, torch.float32)
+    comm.reset_counts()
+    args, kw = op.kernel_args(xv)
+    torch.cuda.synchronize()
+    sent["level 0 spmv"] = dict(comm.sent)
+    y = g.hyb_spmv_sharded(*args, **kw)
+    check_bits(y, g.hyb_spmv_sharded_plain(*args, **kw),
+               "hyb_spmv_sharded on the all-gather route")
+    xw = mesh.gather_rows(xv)
+    recs = {}
+    if timing:
+        w4 = x.element_size()
+        flat = idx.reshape(-1)
+        recs["take"] = [record(
+            {}, "take", f"rank block, the permuted finest level all-gathered:"
+            f" idx={tuple(idx.shape)} of the whole {xg.shape[0]} float32",
+            0.0, lambda: g.take(idx, xg), lambda: g.take_plain(idx, xg),
+            lambda: xg.index_select(0, flat),
+            idx.numel() * (4 + w4) + touched(idx) * w4)]
+        whole = repad_ell(ell, xw.shape[0])
+        lo, hi = mesh.local_rows(xw.shape[0])
+        csr = csr_of(whole.cols[:, lo:hi], whole.vals[:, lo:hi],
+                     whole.slot_mask()[:, lo:hi], xw.shape[0])
+        check(torch.allclose(torch.mv(csr, xw), y, rtol=1e-4, atol=1e-4),
+              "the permuted level 0: the cuSPARSE yardstick computes "
+              "another function")
+        nbytes, flops = sharded_spmv_bound(args, kw)
+        recs["hyb_spmv_sharded"] = [record(
+            {}, "hyb_spmv_sharded", f"rank block permuted level 0 f32 "
+            f"nlocal={mesh.nlocal} npr={op.npad // mesh.nlocal} "
+            f"D={args[1].d} K={kw['cols'].shape[1]} all-gathered x as every "
+            "shard's buffer", 0.0, lambda: g.hyb_spmv_sharded(*args, **kw),
+            lambda: g.hyb_spmv_sharded_plain(*args, **kw),
+            lambda: torch.mv(csr, xw), nbytes, flops)]
+    torch.cuda.synchronize()
+    mesh.allreduce_sum(torch.zeros((1,), device=mesh.device))
+    return recs, sent
 
 
 def multicard_rank(out_dir: str, backend: str, device: str,
@@ -1637,7 +2123,7 @@ def multicard_rank(out_dir: str, backend: str, device: str,
     sys.path.insert(0, HERE)
     import numpy as np
     import torch
-    from multigridsolver_tpu_torch.cli.generators import poisson2d
+    from multigridsolver_tpu_torch.cli.generators import csky3d, poisson2d
     from multigridsolver_tpu_torch.ops import gather as g
     from multigridsolver_tpu_torch.parallel import (
         build_amg_setup_sharded, check_replicated, gather_setup,
@@ -1647,7 +2133,9 @@ def multicard_rank(out_dir: str, backend: str, device: str,
     from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
     from multigridsolver_tpu_torch.utils.config import (BENCH_GRID,
                                                         BENCH_HIERARCHY,
-                                                        bench_config)
+                                                        CSKY_GRID,
+                                                        bench_config,
+                                                        csky_config)
     comm = init_multihost(backend=backend, device=device)
     mesh = global_row_mesh(int(spr))
     log(f"joined: {comm.describe()}; {mesh}")
@@ -1681,18 +2169,59 @@ def multicard_rank(out_dir: str, backend: str, device: str,
         op.spmv(xv)
         torch.cuda.synchronize()
         spmv_bytes.append(dict(comm.sent))
+    timing = comm.rank == 0
+    # every smoother kind, then the kernels of their new operands
+    t0 = time.perf_counter()
+    kinds, hiers = multicard_kinds(mesh, whole, a, b)
+    state_recs, new_bytes = multicard_state_kernels(mesh, hiers,
+                                                    whole.matrices, timing)
+    t_kinds = time.perf_counter() - t0
+    del hiers
+    # the union route: csky3d80 with its transposed-value field
+    t0 = time.perf_counter()
+    csky_a = csky3d(CSKY_GRID)
+    csky, _, csky_whole, _ = rank_cell(
+        mesh, csky_a, np.random.RandomState(0).rand(csky_a.nrows),
+        lambda: csky_a.to_ell(dtype=torch.float32, device=dev,
+                              with_transpose=True),
+        csky_config(), BENCH_HIERARCHY, 2)
+    t_csky = time.perf_counter() - t0
+    # a finest halo wider than a shard: the permuted grid, all-gathered
+    t0 = time.perf_counter()
+    perm_a = permuted_problem()
+    permuted, perm_setup, perm_whole, perm_hs = rank_cell(
+        mesh, perm_a, b, lambda: perm_a.to_ell(dtype=torch.float32,
+                                               device=dev),
+        bench_config(), BENCH_HIERARCHY, PERMUTED_SHARD_LEVELS)
+    gathered_recs, gathered_bytes = multicard_gathered_kernels(
+        mesh, perm_setup.matrices[0], perm_hs.levels[0].a,
+        perm_whole.matrices[0], timing)
+    t_perm = time.perf_counter() - t0
+    new_bytes.update(gathered_bytes)
+    if timing:
+        kernels["hyb_spmv_sharded"] += state_recs \
+            + gathered_recs["hyb_spmv_sharded"]
+        kernels["take"] = gathered_recs["take"]
     doc = dict(rank=comm.rank, transport=comm.describe(), device=str(dev),
                device_name=torch.cuda.get_device_name(dev),
                levels=[m.nrows for m in whole.matrices],
                iterations=res.iterations, relres=res.relres,
                status=res.status, digest=digest, launches=counts, sent=sent,
                spmv_bytes=spmv_bytes, kernels=kernels,
+               routes=level_routes(hs, 2),
                times=dict(to_ell=t_ell, setup=t_setup, gather_setup=t_gather,
                           hierarchy=t_hier, shard_hierarchy=t_shard,
-                          check_replicated=t_check, solve=t_solve))
+                          check_replicated=t_check, solve=t_solve),
+               kinds=kinds, csky=csky, permuted=permuted,
+               new_route_bytes=new_bytes,
+               cell_walls=dict(kinds=t_kinds, csky=t_csky, permuted=t_perm))
     if comm.rank == 0:
         torch.save(dict(labels=[l.cpu() for l in whole.level_labels],
-                        x=torch.from_numpy(x)),
+                        x=torch.from_numpy(x),
+                        csky_labels=[l.cpu()
+                                     for l in csky_whole.level_labels],
+                        permuted_labels=[l.cpu() for l
+                                         in perm_whole.level_labels]),
                    os.path.join(out_dir, "whole.pt"))
     with open(os.path.join(out_dir, f"rank{comm.rank}.json"), "w") as f:
         json.dump(doc, f)
@@ -3130,6 +3659,7 @@ def phase_cli(device) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: {PKG}/ not found beside this script",
               file=sys.stderr)
@@ -3150,24 +3680,27 @@ def main() -> int:
             # on the card (gloo), each of 4 / ranks shards: no result lines
             ranks = max(torch.cuda.device_count(), MULTICARD_RANKS)
             phase_multicard(phase_main_path(device, problem), {}, {},
+                            csky_reference(device), phase_permuted(device),
                             ranks=ranks, spr=max(4 // ranks, 1))
             log("chip_smoke: the multicard phase passed")
             return 0
         kres, floor_ms = phase_kernels(device, problem)
         unsharded = phase_main_path(device, problem)
         phase_hyb(device, unsharded, kres)
-        sharded, hier_sh, sharded_times = phase_sharded(device, problem,
-                                                        unsharded)
+        sharded, hier_sh, sharded_times, sharded_kinds = phase_sharded(
+            device, problem, unsharded)
         phase_sharded_spmv(device, hier_sh, unsharded, kres)
-        multicard = phase_multicard(unsharded, sharded_times, kres)
         csky = phase_csky(device, kres)
         phase_csky_hyb(device, csky, kres)
+        multicard = phase_multicard(unsharded, sharded_times, kres, csky,
+                                    phase_permuted(device))
         smoothers = phase_smoothers(device, unsharded, csky, kres)
         quality = phase_quality(device, unsharded, csky, kres)
         cli = phase_cli(device)
         by_path = {"unsharded": unsharded["launches"], "sharded": sharded,
-                   "multicard": multicard, "csky": csky["launches"],
-                   "smoothers": smoothers, "quality": quality, "cli": cli}
+                   "sharded_kinds": sharded_kinds, **multicard,
+                   "csky": csky["launches"], "smoothers": smoothers,
+                   "quality": quality, "cli": cli}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3187,6 +3720,8 @@ def main() -> int:
                         "weighted_transfers", "checktentagg", "rank_block")
                        if k in kres[name]})
                for name in REPLACES]
+    log(f"chip_smoke: the whole run took {time.perf_counter() - t_start:.1f}"
+        " s (the kernels' build included)")
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -777,27 +777,28 @@ def sharded_dia_corrections_plain(y: torch.Tensor, dvals: torch.Tensor,
     """Add the boundary terms the interior left out: rows i < w fold the
     lanes with i + o < 0 from the left halo, rows i ≥ npr − w the lanes
     with i + o ≥ npr from the right halo (``left``/``right`` ``(ndev,
-    w)``), each fold from +0 in offsets order; the head is added before
-    the tail."""
+    w)``; w may exceed npr), each fold from +0 in offsets order; the head
+    is added before the tail."""
     npr, w = y.shape[1], left.shape[1]
-    iw = torch.arange(w, device=y.device)
-    head = torch.zeros_like(left)
-    tail = torch.zeros_like(right)
+    m = min(w, npr)
+    ih = torch.arange(m, device=y.device)           # rows i < w
+    it = torch.arange(npr - m, npr, device=y.device)  # rows i ≥ npr − w
+    head = y.new_zeros((y.shape[0], m))
+    tail = y.new_zeros((y.shape[0], m))
     for d, o in enumerate(offsets):
         if o < 0:
-            # local row i (< w) wants x_local[i + o]; i + o < 0 → left
-            idx = (w + iw + o).clamp(0, w - 1)
-            head = head + torch.where(iw + o < 0,
-                                      dvals[d][:, :w] * left[:, idx], 0.0)
+            # row i wants x_local[i + o]; i + o < 0 → left[w + i + o]
+            idx = (w + ih + o).clamp(0, w - 1)
+            head = head + torch.where(ih + o < 0,
+                                      dvals[d][:, :m] * left[:, idx], 0.0)
         elif o > 0:
-            # local row i = npr - w + j wants x_local[i + o];
-            # i + o ≥ npr ⇔ j + o ≥ w → right[j + o - w]
-            idx = (iw + o - w).clamp(0, w - 1)
+            # i + o ≥ npr → right[i + o − npr]
+            idx = (it + o - npr).clamp(0, w - 1)
             tail = tail + torch.where(
-                iw + o >= w, dvals[d][:, npr - w:] * right[:, idx], 0.0)
+                it + o >= npr, dvals[d][:, npr - m:] * right[:, idx], 0.0)
     y = y.clone()
-    y[:, :w] += head
-    y[:, npr - w:] += tail
+    y[:, :m] += head
+    y[:, npr - m:] += tail
     return y
 
 
@@ -861,10 +862,9 @@ def _check_hyb_sharded(dvals, lanes, x, ndev, halo, cols, vals, recv,
                                  and halo.dtype == x.dtype):
         raise ValueError(f"halo must be ({ndev}, 2, w) of x's {x.dtype}, got "
                          f"{halo.dtype} {tuple(halo.shape)}")
-    if lanes.d and not (max(-lanes.omin, lanes.omax) <= w <= npr):
+    if lanes.d and not max(-lanes.omin, lanes.omax) <= w:
         raise ValueError(f"the halo width {w} must cover the offsets "
-                         f"[{lanes.omin}, {lanes.omax}] and fit a shard of "
-                         f"{npr}")
+                         f"[{lanes.omin}, {lanes.omax}]")
     if (route == "none") != (cols is None) or (cols is None) != (vals is None):
         raise ValueError(f"route {route!r}: cols and vals must be given "
                          "exactly when the route has a remainder")

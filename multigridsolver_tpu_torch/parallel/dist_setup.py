@@ -12,7 +12,9 @@ arithmetic evaluated pointwise, and the gathers move bits, so the sharded
 setup yields the unsharded run's labels bit for bit.
 
 On a mesh over ranks each rank holds only its rows of the finest level:
-the halo's outer edges come from the neighbour ranks, the host reads of
+the halo's outer edges come from the neighbour ranks (or, where no
+single-hop halo covers the columns, every gather reads the whole field,
+all-gathered, on K2), the host reads of
 the first pass (round flags, counts, the leader numbering) are
 collective, each rank builds the coarse rows of its own leaders, and one
 all-gather makes the first pass's coarse operator whole on every rank;
@@ -82,8 +84,11 @@ def build_amg_setup_sharded(a: ELL, cfg: HierarchyConfig,
     level's operator and labels in the result are this rank's rows (every
     other level is whole).  The mutual matching's first pass is what runs
     over ranks: the greedy matching, checktentagg and the smoothed
-    prolongation read the whole finest level and are refused there, as is
-    a halo wider than a shard."""
+    prolongation read the whole finest level and are refused there.  A
+    halo wider than a shard over ranks makes every gather of the finest
+    level read the whole field, all-gathered once per gather (K2 on the
+    gathered vector), and every host read stays an all-reduced scalar, so
+    that all ranks branch alike."""
     if mesh.over_ranks:
         agg = cfg.aggregation
         refused = [name for name, on in (
@@ -94,10 +99,10 @@ def build_amg_setup_sharded(a: ELL, cfg: HierarchyConfig,
             raise NotImplementedError(
                 f"the setup over ranks does not take {', '.join(refused)}")
     a_sh = shard_ell_halo(a, mesh)
-    if a_sh is None:
-        if mesh.over_ranks:
-            raise ValueError("the finest level's halo exceeds a shard: no "
-                             "single-hop exchange between ranks covers it")
+    if a_sh is None and mesh.over_ranks:
+        a_sh = local_ell(on_device(repad_ell(a, mesh.ndev * ROW_BLOCK),
+                                   mesh.device), mesh, None)
+    elif a_sh is None:
         a_sh = shard_ell(a, mesh)
     return build_amg_setup(a_sh, cfg)
 
@@ -119,8 +124,9 @@ def gather_setup(setup: SetupResult, a: ELL, mesh: RowMesh) -> SetupResult:
 
 def replicated_digest(hier: Hierarchy, shard_levels: int) -> str:
     """SHA-256 of everything a sharded hierarchy replicates: the levels
-    from ``shard_levels`` on (operator, labels, smoother diagonal and
-    λmax, transfer arrays) and the coarse LU."""
+    from ``shard_levels`` on (operator, labels, smoother state: diagonal,
+    λmax, gs2's triangular halves, ilu0's factors and U diagonal;
+    transfer arrays) and the coarse LU."""
     h = hashlib.sha256()
 
     def add(t):
@@ -133,14 +139,25 @@ def replicated_digest(hier: Hierarchy, shard_levels: int) -> str:
         else:
             h.update(repr(t).encode())
 
+    def add_op(a):
+        if a is None:
+            add(None)
+        elif isinstance(a, ELL):
+            for t in (a.cols, a.vals, a.rownnz, a.nrows):
+                add(t)
+        else:
+            for t in (a.dvals, a.offsets, a.nrows):
+                add(t)
+            add_op(a.ell)
+
     for lvl in hier.levels[shard_levels:]:
-        a = lvl.a
-        for t in (a.dvals, a.offsets, a.nrows,
-                  None if a.ell is None else a.ell.cols,
-                  None if a.ell is None else a.ell.vals,
-                  None if a.ell is None else a.ell.rownnz,
-                  lvl.labels, lvl.smoother.d, lvl.smoother.lmax,
-                  lvl.tplan.p_cols, lvl.tplan.m_cols, lvl.tplan.m_vals):
+        sm = lvl.smoother
+        add_op(lvl.a)
+        for t in (lvl.labels, sm.d, sm.lmax, sm.udiag):
+            add(t)
+        for op in (sm.lower, sm.upper, sm.lmat, sm.umat):
+            add_op(op)
+        for t in (lvl.tplan.p_cols, lvl.tplan.m_cols, lvl.tplan.m_vals):
             add(t)
     for t in (hier.coarse.lu, hier.coarse.piv):
         add(t)

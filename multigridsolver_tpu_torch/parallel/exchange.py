@@ -16,7 +16,12 @@ runs every shard's rows, reading ``x_local`` and ``recv`` in place.
 
 When a shard pair shares no columns its list is empty; when every pair is
 empty, no exchange runs at all.  When the lists approach the all-gather's
-volume the plan is refused, and the caller keeps the all-gather.
+volume the plan is refused, and the operator takes the all-gather route:
+in one process the kernel reads the whole x; over ranks one all-gather of
+x per SpMV is every local shard's exchange buffer.  A slot that stores a
+zero value (the other triangle of a split operator, an ILU factor on its
+level's pattern) references nothing: each operator's plan is built from
+its own nonzero pattern (:func:`plan_pattern`).
 """
 from __future__ import annotations
 
@@ -104,6 +109,41 @@ def build_exchange_plan(cols: np.ndarray, rownnz: np.ndarray,
                         ndev=ndev, n_local=nl)
 
 
+def plan_pattern(cols: torch.Tensor, vals: torch.Tensor,
+                 row0: int = 0) -> np.ndarray:
+    """``cols`` on the host with every slot that stores a zero value
+    pointed at its own row (``row0`` the first row's global index): the
+    pattern an exchange plan is built from.  Such a slot adds ``0 · x``
+    wherever it reads, so it needs no off-shard entry; a strictly lower
+    operator then references only the shards before its own."""
+    rows = torch.arange(row0, row0 + cols.shape[1], dtype=cols.dtype,
+                        device=cols.device)
+    return torch.where(vals != 0, cols, rows[None, :]).cpu().numpy()
+
+
+def gathered_cols(cols: torch.Tensor, mesh: RowMesh,
+                  npad: int) -> torch.Tensor:
+    """Global columns as the all-gather route's kernel reads them: in one
+    process the whole x itself; over ranks the gathered x as every local
+    shard's exchange buffer, past the shard's own ``npad / ndev`` rows."""
+    return cols + npad // mesh.ndev if mesh.over_ranks else cols
+
+
+def remainder_recv(x: torch.Tensor, mesh: RowMesh, route: str,
+                   send_idx: torch.Tensor | None, L: int):
+    """The off-shard x a sharded remainder reads in one SpMV, and the
+    route the kernel takes for it: the index-list exchange's buffer
+    (``"exchange"``), or on the all-gather route over ranks the gathered x
+    as every local shard's exchange buffer (:func:`gathered_cols`)."""
+    nl = mesh.nlocal
+    if route == "exchange":
+        return (exchange_recv(x.view(nl, -1), send_idx, mesh) if L
+                else None), route
+    if route == "all_gather" and mesh.over_ranks:
+        return mesh.gather_rows(x).expand(nl, -1).contiguous(), "exchange"
+    return None, route
+
+
 def shard_blocks(t: torch.Tensor, ndev: int) -> torch.Tensor:
     """``(K, ndev·npr)`` slot arrays as contiguous per-shard blocks
     ``(ndev, K, npr)``: the rows each shard owns, as its kernel reads
@@ -125,20 +165,22 @@ def exchange_recv(xs: torch.Tensor, send_idx: torch.Tensor,
 
 @dataclass
 class ExchangeELL:
-    """A row-sharded ELL operator whose SpMV moves only the off-shard x
-    entries its columns reference (one ``all_to_all`` of the precomputed
-    index lists) instead of all-gathering x.
+    """A row-sharded ELL operator bound to its mesh: its SpMV moves only
+    the off-shard x entries its columns reference (one ``all_to_all`` of
+    the precomputed index lists), or, where the plan was refused, reads
+    the whole x (``send_idx`` None: the all-gather route).
 
     ``cols`` holds the plan's remapped indices (into each shard's
-    ``[x_local | recv]``) and ``vals`` the values, both as per-shard
-    blocks ``(ndev, K, npr)``; ``send_idx`` ``(ndev, ndev, L)`` int64.
-    ``ops.spmv`` dispatches here through the ``mesh`` attribute.
+    ``[x_local | recv]``) or the global columns
+    (:func:`gathered_cols`), and ``vals`` the values, both as per-shard
+    blocks ``(nlocal, K, npr)``; ``send_idx`` ``(nlocal, ndev, L)``
+    int64.  ``ops.spmv`` dispatches here through the ``mesh`` attribute.
     """
 
     cols: torch.Tensor
     vals: torch.Tensor
     rownnz: torch.Tensor
-    send_idx: torch.Tensor
+    send_idx: torch.Tensor | None
     mesh: RowMesh
     L: int
     nrows: int
@@ -149,34 +191,45 @@ class ExchangeELL:
     def k(self) -> int:
         return self.cols.shape[1]
 
-    def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        nl = self.mesh.nlocal
+    @property
+    def route(self) -> str:
+        """``"exchange"`` (index-list plan) or ``"all_gather"``."""
+        return "all_gather" if self.send_idx is None else "exchange"
+
+    def kernel_args(self, x: torch.Tensor):
+        """The arguments of the one ``hyb_spmv_sharded`` launch of an SpMV
+        of ``x`` (the exchange runs here): ``(args, kwargs)``."""
         x = x.contiguous()
-        recv = exchange_recv(x.view(nl, -1), self.send_idx,
-                             self.mesh) if self.L > 0 else None
-        return gather.hyb_spmv_sharded(None, gather.NO_LANES, x, nl,
-                                       cols=self.cols, vals=self.vals,
-                                       recv=recv, route="exchange")
+        recv, route = remainder_recv(x, self.mesh, self.route,
+                                     self.send_idx, self.L)
+        return (None, gather.NO_LANES, x, self.mesh.nlocal), dict(
+            cols=self.cols, vals=self.vals, recv=recv, route=route)
+
+    def spmv(self, x: torch.Tensor) -> torch.Tensor:
+        args, kw = self.kernel_args(x)
+        return gather.hyb_spmv_sharded(*args, **kw)
 
 
-def exchange_ell(ell, mesh: RowMesh) -> ExchangeELL | None:
-    """Wrap a sharded ELL (whole, npad a multiple of ``ndev``) in the
-    index-list exchange.  One host read of cols/rownnz; None if the plan
-    is refused (the caller keeps the all-gather path).  Over ranks this
-    rank's rows of the plan are kept."""
+def exchange_ell(ell, mesh: RowMesh) -> ExchangeELL:
+    """Bind a sharded ELL (whole, npad a multiple of ``ndev``) to the
+    mesh: the index-list exchange, built from its nonzero pattern (one
+    host read of cols/vals/rownnz), or the all-gather route where that
+    plan is refused.  Over ranks this rank's rows are kept."""
     ndev, nl = mesh.ndev, mesh.nlocal
-    plan = build_exchange_plan(ell.cols.cpu().numpy(),
+    plan = build_exchange_plan(plan_pattern(ell.cols, ell.vals),
                                ell.rownnz.cpu().numpy(), ndev)
-    if plan is None:
-        return None
     lo, hi = mesh.local_rows(ell.npad)
-    mine = slice(mesh.first_shard, mesh.first_shard + nl)
     dev = ell.cols.device
+    if plan is None:
+        cols, send_idx, L = gathered_cols(ell.cols[:, lo:hi], mesh,
+                                          ell.npad), None, 0
+    else:
+        mine = slice(mesh.first_shard, mesh.first_shard + nl)
+        cols = torch.from_numpy(plan.cols[:, lo:hi]).to(dev)
+        send_idx = torch.from_numpy(plan.send_idx[mine]).to(
+            device=dev, dtype=torch.int64)
+        L = plan.L
     return ExchangeELL(
-        cols=shard_blocks(torch.from_numpy(plan.cols[:, lo:hi]).to(dev), nl),
-        vals=shard_blocks(ell.vals[:, lo:hi], nl),
-        rownnz=ell.rownnz[lo:hi],
-        send_idx=torch.from_numpy(plan.send_idx[mine]).to(
-            device=dev, dtype=torch.int64),
-        mesh=mesh, L=plan.L, nrows=ell.nrows, ncols=ell.ncols,
-        npad=hi - lo)
+        cols=shard_blocks(cols, nl), vals=shard_blocks(ell.vals[:, lo:hi], nl),
+        rownnz=ell.rownnz[lo:hi], send_idx=send_idx, mesh=mesh, L=L,
+        nrows=ell.nrows, ncols=ell.ncols, npad=hi - lo)

@@ -32,6 +32,7 @@ import torch
 from ..ops import gather
 from ..setup import transfers as tf
 from ..solve.hierarchy import Hierarchy
+from ..solve.smoothers import KINDS as SMOOTHER_KINDS, Smoother
 from ..sparse.formats import ELL
 from ..sparse.hybrid import HYB
 
@@ -159,27 +160,47 @@ class RowMesh:
         one, all-reduced."""
         return self.allreduce_sum(torch.dot(u, v))
 
-    def row_halo(self, t: torch.Tensor, h: int):
+    def row_halo(self, t: torch.Tensor, h: int, left: bool = True,
+                 right: bool = True):
         """The boundary rows of the neighbour ranks for a ``(..., nloc)``
         field: ``(left, right)``, the last ``h`` columns of rank − 1 and
         the first ``h`` of rank + 1, None at the mesh ends (both None in
-        one process, where every row is local)."""
+        one process, where every row is local).  A side not asked for is
+        not exchanged (None): a strictly lower operator reads only the
+        left one, so every rank sends only toward the next."""
         if not self.over_ranks or h == 0:
             return None, None
         n = t.shape[-1]
-        return self.comm.exchange(t[..., :h], t[..., n - h:])
+        return self.comm.exchange(t[..., :h] if right else None,
+                                  t[..., n - h:] if left else None)
 
-    def boundary_halo(self, x: torch.Tensor, h: int) -> torch.Tensor:
+    def boundary_halo(self, x: torch.Tensor, h: int, left: bool = True,
+                      right: bool = True) -> torch.Tensor:
         """``(nlocal, 2, h)``: for each local shard, the last ``h``
         entries of its left neighbour and the first ``h`` of its right
         neighbour, zero at the mesh ends (the two non-cyclic shifts of
         ``windowed_take_sharded``), as K4 and ``hyb_spmv_sharded`` read
         it: one ``halo_fill`` launch on the card, whose outer edges are,
-        over ranks, the slabs received from the neighbour ranks."""
+        over ranks, the slabs received from the neighbour ranks (zeros on
+        a side not asked for)."""
         if not self.over_ranks or h == 0:
             return gather.halo_fill(x, self.nlocal, h)
-        lo, hi = self.row_halo(x, h)
+        lo, hi = self.row_halo(x, h, left, right)
         return gather.halo_fill(x, self.nlocal, h, lo, hi)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A ``(..., nloc)`` field of this rank's rows made whole, ``(...,
+        ndev · npr)``, on every rank: one all-gather (``t`` itself in one
+        process, where it is whole).  A bool field travels as its
+        bytes."""
+        if not self.over_ranks:
+            return t
+        flag = t.dtype == torch.bool
+        g = self.comm.all_gather(t.view(torch.uint8) if flag else t)
+        if t.dim() > 1:
+            g = g.view(self.world, -1, t.shape[-1]).transpose(0, 1) \
+                .reshape(*t.shape[:-1], -1)
+        return g.view(torch.bool) if flag else g
 
 
 def make_row_mesh(n_devices: int, device: torch.device | str = "cuda"
@@ -249,10 +270,11 @@ def halo_reach(a: ELL, ndev: int, transposed: bool = False) -> int:
     return over
 
 
-def local_ell(a: ELL, mesh: RowMesh, h: int) -> ELL:
+def local_ell(a: ELL, mesh: RowMesh, h: int | None) -> ELL:
     """This rank's rows of ``a`` (whole, npad a multiple of ``ndev``),
     marked ``shard = (mesh, npr, h)``: its neighbour gathers read the
-    neighbour ranks' rows through a halo of ``h``."""
+    neighbour ranks' rows through a halo of ``h``, or (``h`` None: the
+    halo would exceed a shard) from the whole field, all-gathered."""
     lo, hi = mesh.local_rows(a.npad)
 
     def rows(t):
@@ -265,15 +287,13 @@ def local_ell(a: ELL, mesh: RowMesh, h: int) -> ELL:
 def shard_ell(a: ELL, mesh: RowMesh) -> ELL:
     """``a`` on the mesh's device with npad a multiple of ``ndev · 8``.
     Over ranks only this rank's rows are kept, marked for the halo its
-    columns need (refused when that halo exceeds a shard)."""
+    columns need, or for gathers from the whole field where that halo
+    exceeds a shard."""
     a = on_device(repad_ell(a, mesh.ndev * 8), mesh.device)
     if not mesh.over_ranks:
         return a
     h = halo_reach(a, mesh.ndev, transposed=True)
-    if h > a.npad // mesh.ndev:
-        raise ValueError(f"the halo {h} exceeds a shard of "
-                         f"{a.npad // mesh.ndev} rows")
-    return local_ell(a, mesh, h)
+    return local_ell(a, mesh, h if h <= a.npad // mesh.ndev else None)
 
 
 def _repad_hybrid(a: HYB, mesh: RowMesh) -> HYB:
@@ -310,6 +330,14 @@ def shard_operator(a, mesh: RowMesh):
     return shard_ell(a, mesh)
 
 
+def repad_operator(a, mesh: RowMesh):
+    """A level operator (ELL or hybrid) whole on the mesh's device, npad
+    a multiple of ``ndev · 8`` (the new rows empty)."""
+    if isinstance(a, HYB):
+        return _repad_hybrid(a, mesh)
+    return on_device(repad_ell(a, mesh.ndev * 8), mesh.device)
+
+
 def replicate(tree, mesh: RowMesh):
     """Every shard reads the same copy: the object itself (over ranks
     every rank holds its own, built identically)."""
@@ -335,7 +363,9 @@ class RankTransfer:
     form one range.  Rank ``r`` restricts those rows: K1 over their
     members-ELL, reading its own block of ``v`` and, where the members
     reach past its last row, the first ``reach`` entries of rank ``r + 1``
-    (one neighbour exchange).  Each coarse row adds its members in
+    (one neighbour exchange), or, where they reach past what rank
+    ``r + 1`` holds (a permuted grid), the whole ``v``, all-gathered.
+    Each coarse row adds its members in
     ascending order, as on one process, so the bits are the same.  One
     all-gather of the per-rank ranges (each padded to the longest, plus a
     zero) and one K2 gather assemble the coarse vector, whose own block a
@@ -371,12 +401,12 @@ class RankTransfer:
             if counts[q]:
                 last = int(torch.where(ok, blk, -1).max())
                 reach = max(reach, last - (q + 1) * per_rank + 1)
-        if reach > per_rank:
-            raise ValueError(f"aggregates reach {reach} rows past a rank's "
-                             f"{per_rank}: more than the next rank holds")
+        # past what the next rank holds, the members read the whole v
+        self.gathered = reach > per_rank
         c0, cnt = starts[mesh.rank], counts[mesh.rank]
         cols = torch.where(m_vals[:, c0:c0 + cnt] > 0,
-                           m_cols[:, c0:c0 + cnt] - lo, 0)
+                           m_cols[:, c0:c0 + cnt]
+                           - (0 if self.gathered else lo), 0)
         self.m_cols = _pad_rows(cols, width).to(torch.int32).contiguous()
         self.m_vals = _pad_rows(m_vals[:, c0:c0 + cnt], width).contiguous()
         # coarse row c lies at owner · width + (c − start[owner]) of the
@@ -399,7 +429,9 @@ class RankTransfer:
 
     def restrict(self, v: torch.Tensor) -> torch.Tensor:
         src = v
-        if self.reach:
+        if self.gathered:
+            src = self.mesh.gather_rows(v)
+        elif self.reach:
             _, right = self.mesh.comm.exchange(v[:self.reach], None)
             src = torch.cat([v, right if right is not None
                              else v.new_zeros((self.reach,))])
@@ -416,68 +448,80 @@ class RankTransfer:
         return gather.gather_spmv(self.p_cols, self.p_vals, xc)[:out_len]
 
 
+def _shard_smoother(sm: Smoother, npad: int, mesh: RowMesh) -> Smoother:
+    """A sharded level's smoother state: the vectors padded to the level's
+    ``npad`` (the diagonal and ILU's U diagonal with 1.0) and, over
+    ranks, this rank's rows of them; gs2's triangular halves and ilu0's
+    L and U factors, computed on the whole level before sharding, are
+    repadded with empty rows and bound to the mesh as the level operator
+    is (:func:`~.halo.bind_operator`), each with its own exchange plan."""
+    from .halo import bind_operator
+
+    def rows(t):
+        lo, hi = mesh.local_rows(npad)
+        t = _pad_rows(t, npad, 1.0)
+        return t[lo:hi].contiguous() if mesh.over_ranks else t
+
+    def bound(op):
+        return bind_operator(repad_operator(op, mesh), mesh)
+
+    state = dict(d=rows(sm.d))
+    if sm.lower is not None:
+        state.update(lower=bound(sm.lower), upper=bound(sm.upper))
+    if sm.lmat is not None:
+        state.update(lmat=bound(sm.lmat), umat=bound(sm.umat),
+                     udiag=rows(sm.udiag))
+    return dataclasses.replace(sm, **state)
+
+
 def shard_hierarchy(hier: Hierarchy, mesh: RowMesh,
                     shard_levels: int = 1) -> Hierarchy:
     """Distribute a built hierarchy over the mesh.
 
-    The finest ``shard_levels`` levels are row-sharded: a banded operator
-    whose halo fits a shard becomes a :class:`~.halo.HaloOp` (halo
-    exchange; its ELL remainder rides the index-list exchange, or the
-    all-gather), a plain ELL an :class:`~.exchange.ExchangeELL`.  Labels
-    are padded with -1 (excluded) and the smoother's diagonal with 1.0, so
-    the repadding never changes the operator.  Only Chebyshev smoothers
-    and label transfers are sharded; any other smoother kind and a
-    weighted (smoothed) transfer plan are refused.  In one process the
+    The finest ``shard_levels`` levels are row-sharded and bound to the
+    mesh (:func:`~.halo.bind_operator`): a banded operator whose halo fits
+    a shard becomes a :class:`~.halo.HaloOp` (halo exchange; its ELL
+    remainder rides the index-list exchange, or the all-gather), a plain
+    ELL an :class:`~.exchange.ExchangeELL` (the same two routes).  Labels
+    are padded with -1 (excluded) and the smoother's vectors with 1.0, so
+    the repadding never changes the operator.  Every smoother kind's
+    state is sharded beside the level (:func:`_shard_smoother`); a
+    weighted (smoothed) transfer plan is refused.  In one process the
     transfers keep their K1 arrays, rebuilt where a level's padding grew.
     Over ranks every rank passes the same whole hierarchy, and keeps of
     each sharded level only its own rows (operator, labels, smoother
-    diagonal), with :class:`RankTransfer` s from the whole labels.  Deeper
-    levels and the coarse LU are unchanged (replicated).
+    state), with :class:`RankTransfer` s from the whole labels; a
+    hybrid whose halo exceeds a shard reads its halo from the all-gathered
+    x.  Deeper levels and the coarse LU are unchanged (replicated).
     """
-    from .exchange import exchange_ell
-    from .halo import halo_width, make_halo_op
+    from .halo import bind_operator
     if any(lvl.tplan.weighted for lvl in hier.levels):
         # a smoothed P's coarse operators are P_sᵀ A P_s: the label
         # transfers the sharded levels rebuild would apply another operator
         raise NotImplementedError(
             "shard_hierarchy does not shard weighted (smoothed) transfers")
-    kinds = sorted({lvl.smoother.kind for lvl in hier.levels} - {"chebyshev"})
-    if kinds:
+    unknown = sorted({lvl.smoother.kind for lvl in hier.levels}
+                     - set(SMOOTHER_KINDS))
+    if unknown:
         raise NotImplementedError(
-            f"shard_hierarchy takes Chebyshev smoothers only, the hierarchy "
-            f"has {kinds}: their triangular parts and ILU factors are not "
-            "sharded")
-    ndev = mesh.ndev
+            f"shard_hierarchy does not know the smoother kinds {unknown}; "
+            f"it shards {SMOOTHER_KINDS}")
     levels, npads, whole_labels = [], [], []
     for idx, lvl in enumerate(hier.levels):
         if idx >= shard_levels:
             levels.append(lvl)
             npads.append(lvl.a.npad)
             continue
-        if isinstance(lvl.a, HYB):
-            a = _repad_hybrid(lvl.a, mesh)
-        else:
-            a = shard_ell(lvl.a, mesh) if not mesh.over_ranks \
-                else repad_ell(lvl.a, ndev * 8)
+        a = repad_operator(lvl.a, mesh)
         npad = a.npad
-        if isinstance(a, HYB) and halo_width(a) <= npad // ndev \
-                and (a.offsets or mesh.over_ranks):
-            a = make_halo_op(a, mesh)
-        elif mesh.over_ranks:
-            raise NotImplementedError(
-                f"level {idx}: over ranks a sharded level must be a hybrid "
-                "whose halo fits a shard")
-        elif isinstance(a, ELL):
-            a = exchange_ell(a, mesh) or a
         labels = _pad_rows(lvl.labels, npad, -1)
-        d = _pad_rows(lvl.smoother.d, npad, 1.0)
         whole_labels.append(labels)
         if mesh.over_ranks:
             lo, hi = mesh.local_rows(npad)
-            labels, d = labels[lo:hi].contiguous(), d[lo:hi].contiguous()
+            labels = labels[lo:hi].contiguous()
         levels.append(dataclasses.replace(
-            lvl, a=a, labels=labels,
-            smoother=dataclasses.replace(lvl.smoother, d=d)))
+            lvl, a=bind_operator(a, mesh), labels=labels,
+            smoother=_shard_smoother(lvl.smoother, npad, mesh)))
         npads.append(npad)
     # each transfer maps its level's npad to the next level's: rebuild the
     # K1 arrays where either side was repadded

@@ -148,9 +148,10 @@ def _galerkin_pair_arrays_ranks(a: ELL, paired: torch.Tensor,
     leader (the smaller member) lies on this rank form one range; the
     rank merges those rows.  A partner lies past the leader, at most the
     halo ``h`` into the next rank, whose first ``h`` rows of the member
-    fields arrive through the row halo.  One all-gather of every rank's
-    rows (padded to the longest range) makes the arrays whole on every
-    rank, the same bits as one process."""
+    fields arrive through the row halo; where the halo would exceed a
+    shard (``h`` None) the member fields are all-gathered whole.  One
+    all-gather of every rank's rows (padded to the longest range) makes
+    the arrays whole on every rank, the same bits as one process."""
     dev, r0, h = a.device, a.row0, a.shard[2]
     nodes = a.row_ids()
     active = labels >= 0
@@ -165,15 +166,22 @@ def _galerkin_pair_arrays_ranks(a: ELL, paired: torch.Tensor,
     real = leader_of >= 0
     safe_leader = leader_of.clamp_min(0)
     partner = ell_ops.take_member_rows(safe_leader, paired[None, :])[0]
-    partner_of = torch.where(real & (partner >= 0), partner - r0,
-                             safe_leader)
-    has_partner = real & (partner_of != safe_leader)
     sources = []
     for src in _member_sources(a, labels):
+        if h is None:
+            sources.append(mesh.gather_rows(src))
+            continue
         # the next rank's first h rows (each rank sends its own left)
         right = mesh.comm.exchange(src[:, :h], None)[1] if h else None
         sources.append(torch.cat([src, right if right is not None
                                   else torch.zeros_like(src[:, :h])], 1))
+    # member rows of the sources: from this rank's first row, or global
+    # where the sources are whole
+    base = r0 if h is not None else 0
+    safe_leader = safe_leader + (r0 - base)
+    partner_of = torch.where(real & (partner >= 0), partner - base,
+                             safe_leader)
+    has_partner = real & (partner_of != safe_leader)
     out = _pair_merge(sources, a.k, nc, real, safe_leader, partner_of,
                       has_partner)
     whole = []

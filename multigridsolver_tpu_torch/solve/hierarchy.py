@@ -34,7 +34,8 @@ class Level:
     for ``gs2`` the operator's strictly triangular parts) and the transfer
     arrays.  The operator is a HYB, or on a row-sharded level a
     ``parallel.HaloOp`` (a HYB bound to its mesh, which reads as that HYB
-    everywhere but in ``ops.spmv``)."""
+    everywhere but in ``ops.spmv``); a sharded level's smoother state is
+    bound to the mesh the same way (``parallel.shard_hierarchy``)."""
 
     a: hyb.HYB
     labels: torch.Tensor

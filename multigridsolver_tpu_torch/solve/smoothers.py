@@ -11,6 +11,11 @@
   sweep), its two triangular solves again replaced by Jacobi inner
   sweeps.
 
+On a row-sharded level (``parallel.shard_hierarchy``) every kind keeps
+its arithmetic: its vectors hold the level's rows, and its operators (the
+level's, gs2's halves, ilu0's L and U) are the level's sharded operators,
+whose SpMVs run the halo, exchange or all-gather route.
+
 The power iteration starts from the JAX package's start vector,
 ``jax.random.normal(PRNGKey(seed), (npad,))``, drawn again on the
 operator's device (:func:`jax_normal`): twelve steps do not converge, so

@@ -24,7 +24,9 @@ def take_neighbor(a: ELL, x: torch.Tensor,
     boundary slabs with its mesh neighbours and gathers on K4 instead;
     the covered range holds every stored column and the shard's own rows,
     so any index drawn from those (partner proposals, pair indices,
-    leaders) is served.
+    leaders) is served.  On a rank's rows whose halo would exceed a shard
+    (``h`` None) the field is all-gathered and K2 gathers from the whole
+    of it.
 
     Entries at invalid slots (slot ≥ rownnz[i], padding rows) and at
     out-of-range indices are unspecified: every consumer masks them.
@@ -38,6 +40,8 @@ def take_neighbor(a: ELL, x: torch.Tensor,
         return gather.take(idx.contiguous(), x.contiguous())
     mesh, npr, h = a.shard
     x = x.contiguous()
+    if h is None:
+        return gather.take(idx.contiguous(), mesh.gather_rows(x))
     return gather.take_sharded(idx.contiguous(), x, mesh.boundary_halo(x, h),
                                npr, h, base=a.row0)
 
@@ -89,9 +93,10 @@ def spmv(a, x: torch.Tensor) -> torch.Tensor:
     exchanges, then one ``hyb_spmv_sharded`` launch).  ``x``: the padded
     column vector; invalid slots hold val 0, so no masking is needed.  A
     sharded ELL's ``x`` is the whole vector here, on one device, so its
-    SpMV is the plain K1 one; one holding a rank's rows of a mesh over
-    ranks has none (``parallel.shard_hierarchy`` binds such a level to
-    its mesh)."""
+    SpMV is the plain K1 one; an ELL holding a rank's rows of a mesh over
+    ranks that is bound to no route has none (``parallel.shard_hierarchy``
+    and ``parallel.bind_operator`` bind such an operator to its mesh,
+    which then carries its route: halo, exchange or all-gather)."""
     if hasattr(a, "mesh"):
         return a.spmv(x)
     if rank_mesh(a) is not None:
@@ -249,8 +254,17 @@ def _scatter_cols_ranks(a: ELL, v: torch.Tensor, init, mesh) -> torch.Tensor:
     boundary rows (cols and ``v``) come in through the row halo, and the
     rows ``[row0 − h, row0 + nloc + h)`` scatter in slot-major order onto
     the rank's own columns (the rest into a dump slot), so each column
-    adds the same terms in the same order as the whole scatter."""
+    adds the same terms in the same order as the whole scatter.  Where
+    the halo would exceed a shard (``h`` None) every rank's rows are
+    all-gathered and scattered whole."""
     h, n, r0 = a.shard[2], a.npad, a.row0
+    if h is None:
+        cols, vv = mesh.gather_rows(a.cols), mesh.gather_rows(v)
+        out = torch.zeros((cols.shape[1],), dtype=v.dtype, device=v.device)
+        if init is not None:
+            out[r0:r0 + n] = init
+        out.index_add_(0, cols.reshape(-1).long(), vv.reshape(-1))
+        return out[r0:r0 + n].clone()
     parts_c, parts_v = [a.cols], [v]
     left_c, right_c = mesh.row_halo(a.cols, h)
     left_v, right_v = mesh.row_halo(v, h)

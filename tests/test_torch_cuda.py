@@ -609,3 +609,65 @@ def test_smoothers_and_two_level_on_card_match_cpu(device):
         its.append(res.iterations)
         runs[dev.type] = its
     assert all(abs(c - d) <= 1 for c, d in zip(runs["cpu"], runs["cuda"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_smoother_state_and_wide_halo_match_plain(device, dtype):
+    """The sharded SpMVs the smoothers add, one launch each, bitwise
+    their plain version on the same inputs: gs2's halves on a one-sided
+    halo and ilu0's L and U on the index-list exchange (poisson2d(96), two
+    sharded levels of 4 shards), and a hybrid whose halo exceeds a shard
+    (128 shards of 32 rows, lanes at ±64), its halo read from the whole
+    x;
+    then each kind's sharded K-cycle in the CPU's count (±1)."""
+    from multigridsolver_tpu_torch.parallel.halo import (make_halo_op,
+                                                         spmv_route)
+    from multigridsolver_tpu_torch.parallel.sharded import shard_operator
+    mesh = RowMesh(4, device)
+    s = build_amg_setup(poisson2d(96).to_ell(dtype=dtype, device=device),
+                        bench_config())
+    rs = np.random.RandomState(43)
+    ops_ = []
+    for kind in ("gs2", "ilu0"):
+        h = shard_hierarchy(build_hierarchy(
+            s.matrices[0], s.level_labels, s.matrices[1:],
+            **dict(BENCH_HIERARCHY, smoother_kind=kind)), mesh,
+            shard_levels=2)
+        for lvl in h.levels[:2]:
+            sm = lvl.smoother
+            ops_ += [sm.lower, sm.upper] if kind == "gs2" \
+                else [sm.lmat, sm.umat]
+    wide_mesh = RowMesh(128, device)
+    hw = shard_operator(hybrid_from_ell(poisson2d(64).to_ell(
+        dtype=dtype, device=device)), wide_mesh)
+    wide = make_halo_op(hw, wide_mesh)
+    assert spmv_route(wide) == "all_gather"
+    ops_.append(wide)
+    for op in ops_:
+        x = torch.from_numpy(rs.rand(op.npad)).to(device, dtype)
+        args, kw = op.kernel_args(x)
+        g.reset_launch_counts()
+        y = g.hyb_spmv_sharded(*args, **kw)
+        assert g.launch_counts()["hyb_spmv_sharded"] == 1
+        ref = g.hyb_spmv_sharded_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref), (type(op).__name__, spmv_route(op))
+    yw = wide.spmv(x)
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(yw, ops.spmv(hw, x), rtol=tol, atol=tol)
+    b = np.random.RandomState(0).rand(96 * 96)
+    for kind in ("jacobi", "l1jacobi", "gs2", "ilu0"):
+        its = []
+        for dev in (torch.device("cpu"), device):
+            sd = build_amg_setup(poisson2d(96).to_ell(dtype=dtype,
+                                                      device=dev),
+                                 bench_config())
+            h = shard_hierarchy(build_hierarchy(
+                sd.matrices[0], sd.level_labels, sd.matrices[1:],
+                **dict(BENCH_HIERARCHY, smoother_kind=kind)),
+                RowMesh(4, dev), shard_levels=2)
+            res = solve_hierarchy(h, b, method="bicgstab", tol=1e-6,
+                                  maxiter=200)
+            assert res.status == 0 and res.relres < 1e-6
+            its.append(res.iterations)
+        assert abs(its[0] - its[1]) <= 1, (kind, its)

@@ -55,7 +55,7 @@ from multigridsolver_tpu_torch.parallel import (HaloOp, RowMesh,
                                                 shard_hierarchy,
                                                 shard_operator)
 from multigridsolver_tpu_torch.parallel.exchange import exchange_recv
-from multigridsolver_tpu_torch.parallel.halo import make_halo_op
+from multigridsolver_tpu_torch.parallel.halo import make_halo_op, spmv_route
 from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
 from multigridsolver_tpu_torch.solve.api import pad_vector, solve_hierarchy
 from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
@@ -435,8 +435,16 @@ class TestHaloSpMV:
         assert torch.equal(thyb.extract_diag(op), thyb.extract_diag(h))
         assert torch.equal(tsm.jacobi_diag(op, l1=True),
                            tsm.jacobi_diag(h, l1=True))
-        with pytest.raises(ValueError):
-            make_halo_op(h, RowMesh(1024, "cpu"))   # halo exceeds a shard
+        # a halo wider than a shard (64 shards of 32 rows, lanes at ±40)
+        # is read from the all-gathered x: the same SpMV
+        wide_mesh = RowMesh(64, "cpu")
+        hw = shard_operator(h, wide_mesh)
+        assert halo_width(hw) > hw.npad // 64
+        op = make_halo_op(hw, wide_mesh)
+        assert spmv_route(op) == "all_gather"
+        x = torch.from_numpy(np.random.RandomState(4).rand(hw.npad))
+        torch.testing.assert_close(tops.spmv(op, x), thyb.spmv(hw, x),
+                                   rtol=1e-14, atol=1e-14)
 
 
 class TestShardedSetup:

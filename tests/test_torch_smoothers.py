@@ -284,12 +284,22 @@ def test_galerkin_ell_bitwise(dt, agg):
                                       np.asarray(getattr(want, f)))
 
 
-def test_shard_hierarchy_refuses_other_smoothers():
+@pytest.mark.parametrize("kind", ["gs2", "ilu0", "jacobi"])
+def test_shard_hierarchy_refuses_other_smoothers(kind):
+    """``shard_hierarchy`` takes every smoother kind the port has (their
+    state sharded beside the level: the same preconditioner) and refuses
+    only a kind it does not know."""
     a = tgen.poisson2d(16).to_ell(dtype=torch.float64, device="cpu")
     lab = torch.full((a.npad,), -1, dtype=torch.int32)
     lab[:256] = torch.arange(256, dtype=torch.int32) // 4
     ac = galerkin_ell(a, lab, 64)
-    for kind in ("gs2", "ilu0", "jacobi"):
-        h = build_hierarchy(a, [lab], [ac], smoother_kind=kind)
-        with pytest.raises(NotImplementedError, match="Chebyshev"):
-            shard_hierarchy(h, RowMesh(2, "cpu"))
+    h = build_hierarchy(a, [lab], [ac], smoother_kind=kind)
+    hs = shard_hierarchy(h, RowMesh(2, "cpu"))
+    v = torch.from_numpy(np.random.RandomState(1).rand(a.npad))
+    torch.testing.assert_close(hs.precondition(v), h.precondition(v),
+                               rtol=1e-12, atol=1e-14)
+    other = dataclasses.replace(h, levels=tuple(
+        dataclasses.replace(lvl, smoother=dataclasses.replace(
+            lvl.smoother, kind="sor")) for lvl in h.levels))
+    with pytest.raises(NotImplementedError, match="smoother kinds"):
+        shard_hierarchy(other, RowMesh(2, "cpu"))
