@@ -68,9 +68,18 @@ Phases, each printing a line:
    beside their plain versions, library calls and bounds), the bytes
    each rank hands the transport per SpMV of levels 0 and 1, and the
    walls beside the one-process sharded ones; a rank that fails or
-   outlives its timeout fails the run.  ``python3 chip_smoke.py
-   --multicard-only`` runs the main path and this phase alone, with as
-   many ranks as cards;
+   outlives its timeout fails the run.  It runs after step 9, and the
+   same rank processes then run every smoother kind on that setup
+   (jacobi, l1jacobi, gs2, ilu0: their counts, one digest with smoother
+   state), csky3d(80) on the union route (held to step 8's labels), and
+   poisson1000 under a ``RandomState(0)`` permutation on the all-gather
+   route, with Chebyshev and with ilu0 (its plain-ELL L and U on that
+   route), held to its one-process run; each new route's launch is
+   checked bitwise on the rank's block, and every sharded level's route
+   and restriction branch is printed.  ``python3 chip_smoke.py
+   --multicard-only`` runs the main path, csky3d(80)'s and the permuted
+   grid's one-process runs and this phase alone, with as many ranks as
+   cards;
 8. nonsymmetric cell: csky3d(80) (n = 512,000) through ``to_ell`` with the
    transposed-value field → ``build_amg_setup`` (union strength, the field
    as K3's fourth source) → ``build_hierarchy`` → ``solve_refined`` to
@@ -971,9 +980,7 @@ def phase_main_path(device, a) -> dict:
     # (about 1e-2 at n = 10⁶; even the exact solution rounded to f32 lands
     # near 4e-3), far above 1e-5: hold the f32 run to 1e-5 above twice
     # that bound, and the f64 run to 1e-5 itself
-    check(first["true_res"] < 1e-5 + 2 * first["floor"],
-          f"float32 true residual {first['true_res']} >= 1e-5 + 2 * "
-          f"{first['floor']}")
+    check_true_residual("float32", first["true_res"], first["floor"])
     # a second f32 run: times without first-use costs (library handles,
     # allocator growth)
     second = run(torch.float32, EXPECT_LEVELS)
@@ -1136,16 +1143,10 @@ def check_solution(tag, a_sp, b, setup, res, times, dtype, expect_levels):
     relres < 1e-6, the iteration range and (where given) the levels.
     Returns the true residual and what storing x in ``dtype`` allows."""
     import numpy as np
-    import torch
     x = res.x.double().cpu().numpy()
     check(bool(np.isfinite(x).all()) and x.shape == (a_sp.shape[0],),
           f"{tag}: solution is not finite or has the wrong shape")
-    nb = np.linalg.norm(b)
-    true_res = float(np.linalg.norm(b - a_sp @ x) / nb)
-    # what storing x in this dtype alone allows: |A (x - fl(x))| is at
-    # most u |A| |x| componentwise
-    floor = float(torch.finfo(dtype).eps / 2
-                  * np.linalg.norm(abs(a_sp) @ np.abs(x)) / nb)
+    true_res, floor = true_residual(a_sp, b, x, dtype)
     levels = [m.nrows for m in setup.matrices]
     log(f"{tag} levels: {levels}")
     log(f"{tag} solve: iterations={res.iterations} relres={res.relres!r} "
@@ -1285,6 +1286,13 @@ def level_routes(hs, nlevels: int) -> list:
     return out
 
 
+def check_true_residual(tag: str, true_res: float, floor: float) -> None:
+    """A float32 1e-6 solve's true residual (``true_residual``) below 1e-5
+    plus twice the floor of storing x in float32 (ROADMAP Queue 3)."""
+    check(true_res < 1e-5 + 2 * floor,
+          f"{tag}: true residual {true_res} >= 1e-5 + 2 * {floor}")
+
+
 def check_state_routes(tag: str, kind: str, routes: list) -> None:
     """gs2's halves ride the halo (HaloOp), ilu0's L and U the index-list
     exchange (ExchangeELL): the natural-order grid's routes."""
@@ -1368,9 +1376,10 @@ def permuted_problem():
 
 def phase_permuted(device) -> dict:
     """The permuted poisson1000 f32, unsharded in one process: setup,
-    hierarchy and solve of the main path's configuration.  The multicard
-    phase holds its all-gather route to these levels, labels and
-    count."""
+    hierarchy and solve of the main path's configuration, and the
+    smoothers phase's ilu0 K-cycle on the same setup.  The multicard
+    phase holds its all-gather routes to these levels, labels and
+    counts."""
     import numpy as np
     import torch
     from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
@@ -1396,33 +1405,17 @@ def phase_permuted(device) -> dict:
         f"{hier.levels[0].a.ell.k}; " + json.dumps(dict(
             row, permute_s=t_gen, to_ell_s=t_ell, setup_s=t_setup,
             hierarchy_s=t_hier, solve_s=t_solve)))
+    ilu, t_ilu_h = timed(lambda: build_hierarchy(
+        setup.matrices[0], setup.level_labels, setup.matrices[1:],
+        **dict(KCYCLE, smoother_kind="ilu0")))
+    res_ilu, t_ilu_s = timed(lambda: solve_hierarchy(
+        ilu, b, method="bicgstab", tol=1e-6, maxiter=200))
+    log(f"{tag} ilu0 K-cycle: " + json.dumps(dict(
+        solve_checks(f"{tag} ilu0", res_ilu, a_sp, b), hierarchy_s=t_ilu_h,
+        solve_s=t_ilu_s)))
     return dict(levels=levels, iterations=res.iterations,
+                ilu0_iterations=res_ilu.iterations,
                 labels=[l.cpu() for l in setup.level_labels])
-
-
-def csky_reference(device) -> dict:
-    """csky3d80 f32's one-process setup and 1e-6 count, for the
-    multicard phase when the csky phase does not run
-    (``--multicard-only``)."""
-    import numpy as np
-    import torch
-    from multigridsolver_tpu_torch.cli.generators import csky3d
-    from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
-    from multigridsolver_tpu_torch.solve.api import solve_hierarchy
-    from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
-    from multigridsolver_tpu_torch.utils.config import (BENCH_HIERARCHY,
-                                                        CSKY_GRID,
-                                                        csky_config)
-    a = csky3d(CSKY_GRID)
-    ell = a.to_ell(dtype=torch.float32, device=device, with_transpose=True)
-    setup = build_amg_setup(ell, csky_config())
-    hier = build_hierarchy(setup.matrices[0], setup.level_labels,
-                           setup.matrices[1:], **BENCH_HIERARCHY)
-    res = solve_hierarchy(hier, np.random.RandomState(0).rand(a.nrows),
-                          method="bicgstab", tol=1e-6, maxiter=200)
-    check(res.iterations == CSKY_EXPECT["iterations"],
-          f"csky3d80 reference: {res.iterations} iterations")
-    return dict(setup=setup)
 
 
 def old_sharded_route(op, x):
@@ -1550,10 +1543,11 @@ def phase_multicard(unsharded, sharded_times, res, csky, permuted,
     block.  Then, in the same rank processes (``multicard_cells``): every
     smoother kind on that setup, csky3d80 on the union route (held to the
     one-process ``csky`` run's labels and the anchor) and the permuted
-    grid on the all-gather route (held to ``permuted``, its one-process
-    run).  A rank that fails or outlives the timeout fails the phase.
-    Returns the launch counts of both ranks by path (the main path, the
-    kinds, csky, the permuted grid), each summed over the ranks."""
+    grid on the all-gather route, with Chebyshev and with ilu0 (held to
+    ``permuted``, its one-process run).  A rank that fails or outlives
+    the timeout fails the phase.  Returns the launch counts of both ranks
+    by path (the main path, the kinds, csky, the permuted grid and its
+    ilu0 K-cycle), each summed over the ranks."""
     import tempfile
     import numpy as np
     import torch
@@ -1640,15 +1634,11 @@ def phase_multicard(unsharded, sharded_times, res, csky, permuted,
     x = whole["x"].double().numpy()
     check(bool(np.isfinite(x).all()) and x.shape == (a_sp.shape[0],),
           f"{tag}: the solution is not finite or has the wrong shape")
-    nb = np.linalg.norm(b)
-    true_res = float(np.linalg.norm(b - a_sp @ x) / nb)
-    floor = float(torch.finfo(torch.float32).eps / 2
-                  * np.linalg.norm(abs(a_sp) @ np.abs(x)) / nb)
+    true_res, floor = true_residual(a_sp, b, x)
     log(f"{tag} solve: iterations={docs[0]['iterations']} "
         f"relres={docs[0]['relres']!r} true_relres={true_res!r} "
         f"storage_floor={floor!r}")
-    check(true_res < 1e-5 + 2 * floor,
-          f"{tag}: true residual {true_res} >= 1e-5 + 2 * {floor}")
+    check_true_residual(tag, true_res, floor)
     for rk in docs:
         log(f"{tag} rank {rk['rank']} vs one-process sharded seconds: "
             + " ".join(f"{k}={v:.4f}/{sharded_times.get(k, float('nan')):.4f}"
@@ -1672,11 +1662,14 @@ def multicard_cells(tag, docs, whole, csky, permuted) -> dict:
     under the float32 floor and one replicated digest on every rank;
     csky3d80's anchor levels and count and the one-process labels,
     bitwise; the permuted grid's all-gather route on its finest level
-    and its one-process levels, labels and count; the route of every
+    and its one-process levels, labels and count; every csky and permuted
+    solve's true residual under the float32 floor and its restriction's
+    branch; the permuted grid's ilu0 count, the one-process run's, with
+    its plain-ELL L and U on the all-gather route; the route of every
     sharded level; each new route's bytes per SpMV.  Returns each cell's
     launches per rank."""
     import torch
-    paths = {"kinds": [], "csky": [], "permuted": []}
+    paths = {"kinds": [], "csky": [], "permuted": [], "permuted_ilu0": []}
     for kind in SHARDED_KINDS:
         ktag = f"{tag} {kind}"
         for rk in docs:
@@ -1693,9 +1686,8 @@ def multicard_cells(tag, docs, whole, csky, permuted) -> dict:
             check(got["status"] == 0 and got["relres"] < 1e-6,
                   f"{ktag}: rank {rk['rank']} status {got['status']} "
                   f"relres {got['relres']}")
-            check(got["true_relres"] < 1e-5 + 2 * got["storage_floor"],
-                  f"{ktag}: true residual {got['true_relres']} >= 1e-5 + "
-                  f"2 * {got['storage_floor']}")
+            check_true_residual(f"{ktag} rank {rk['rank']}",
+                                got["true_relres"], got["storage_floor"])
             check_count(f"{ktag} rank {rk['rank']}", got["iterations"],
                         SMOOTHER_EXPECT["poisson"][kind])
             check_state_routes(ktag, kind, got["routes"])
@@ -1735,6 +1727,17 @@ def multicard_cells(tag, docs, whole, csky, permuted) -> dict:
                   f"{ctag}: rank {rk['rank']} took {got['iterations']} "
                   f"iterations (status {got['status']}, relres "
                   f"{got['relres']}), the one-process run {want_its}")
+            check_true_residual(f"{ctag} rank {rk['rank']}",
+                                got["true_relres"], got["storage_floor"])
+            for lvl, t in enumerate(got["transfers"]):
+                log(f"{ctag} rank {rk['rank']} level {lvl} restriction: "
+                    + ("the whole v, all-gathered" if t["gathered"] else
+                       f"its block and {t['reach']} rows of the next rank")
+                    + f" (members reach {t['reach']} past the next rank's "
+                    f"first row, {t['rows']} rows a rank)")
+                check(t["gathered"] == (t["reach"] > t["rows"]),
+                      f"{ctag}: level {lvl} restriction branch "
+                      f"{t['gathered']} for a reach of {t['reach']}")
             check(got["launches"]["hyb_spmv_sharded"] > 0,
                   f"{ctag}: no sharded SpMV on rank {rk['rank']}")
             if cell == "csky":
@@ -1760,6 +1763,34 @@ def multicard_cells(tag, docs, whole, csky, permuted) -> dict:
                   "run")
         log(f"{ctag}: levels {want_levels}, {want_its} iterations and "
             "labels bitwise the one-process run's on every level")
+    ctag = f"{tag} permuted ilu0"
+    for rk in docs:
+        got = rk["permuted"]["ilu0"]
+        log(f"{ctag} rank {rk['rank']}: " + json.dumps(
+            {k: got[k] for k in ("iterations", "relres", "status",
+                                 "true_relres", "storage_floor", "times")}))
+        log(f"{ctag} rank {rk['rank']} level 0 routes: "
+            f"{json.dumps(got['routes'][0])}")
+        log(f"{ctag} rank {rk['rank']} launches: "
+            f"{json.dumps(got['launches'])}")
+        check(got["status"] == 0 and got["relres"] < 1e-6
+              and got["iterations"] == permuted["ilu0_iterations"],
+              f"{ctag}: rank {rk['rank']} took {got['iterations']} "
+              f"iterations (status {got['status']}, relres "
+              f"{got['relres']}), the one-process run "
+              f"{permuted['ilu0_iterations']}")
+        check_true_residual(f"{ctag} rank {rk['rank']}",
+                            got["true_relres"], got["storage_floor"])
+        check(all(got["routes"][0][k] == "ExchangeELL:all_gather"
+                  for k in ("L", "U")),
+              f"{ctag}: the plain-ELL factors are not on the all-gather "
+              f"route: {got['routes'][0]}")
+        paths["permuted_ilu0"].append(got["launches"])
+    digests = {rk["permuted"]["ilu0"]["digest"] for rk in docs}
+    check(len(digests) == 1, f"{ctag}: the replicated levels differ "
+          f"between ranks: {digests}")
+    log(f"{ctag}: {permuted['ilu0_iterations']} iterations, the one-process "
+        "run's, with L and U (plain ELLs) on the all-gather route")
     for rk in docs:
         for what, sent in rk["new_route_bytes"].items():
             log(f"{tag} rank {rk['rank']} {what}: bytes handed to the "
@@ -1874,31 +1905,48 @@ def multicard_kernels(mesh, fine, hs, mats, timing: bool) -> dict:
     return res
 
 
-def true_residual(a_sp, b, x) -> tuple[float, float]:
-    """The float64 relative residual of ``x`` on the host, and what
-    storing x in float32 alone allows (``check_solution``'s floor)."""
+def true_residual(a_sp, b, x, dtype=None) -> tuple[float, float]:
+    """The float64 relative residual of ``x`` (a host array) and what
+    storing x in ``dtype`` (float32 unless given) alone allows: |A (x -
+    fl(x))| is at most u |A| |x| componentwise."""
     import numpy as np
     import torch
     nb = np.linalg.norm(b)
+    u = torch.finfo(dtype or torch.float32).eps / 2
     return (float(np.linalg.norm(b - a_sp @ x) / nb),
-            float(torch.finfo(torch.float32).eps / 2
-                  * np.linalg.norm(abs(a_sp) @ np.abs(x)) / nb))
+            float(u * np.linalg.norm(abs(a_sp) @ np.abs(x)) / nb))
 
 
-def sharded_spmv_bound(args, kw) -> tuple[int, int]:
+def sharded_spmv_bound(args, kw, own=None) -> tuple[int, int]:
     """Bytes one ``hyb_spmv_sharded`` launch must move (lanes, x and y,
     the halo and exchange buffers, the remainder's indices and values,
-    each once) and its multiply-adds' operations."""
-    dvals, lanes, x = args[:3]
+    each once) and its multiply-adds' operations.  ``own``, the rows of
+    x within the whole vector, marks ``recv`` as the all-gathered x that
+    every local shard reads as its buffer: the function then reads each
+    word of the whole x it needs once, the columns of the remainder's
+    nonzero slots and, with lanes, the own rows."""
+    import torch
+    dvals, lanes, x, nl = args[:4]
     w4 = x.element_size()
-    nbytes, entries = 2 * x.numel() * w4, 0
-    if dvals is not None and lanes.d:
+    recv, halo, cols = kw.get("recv"), kw.get("halo"), kw.get("cols")
+    nbytes, entries = x.numel() * w4, 0
+    with_lanes = dvals is not None and lanes.d
+    if with_lanes:
         nbytes += dvals.numel() * w4
         entries += int((dvals != 0).sum())
-    for t in (kw.get("halo"), kw.get("recv")):
-        nbytes += 0 if t is None else t.numel() * w4
-    if kw.get("cols") is not None:
-        nbytes += kw["cols"].numel() * (4 + w4)
+    if halo is not None:
+        nbytes += halo.numel() * w4
+    if own is None:
+        nbytes += (x.numel() + (0 if recv is None else recv.numel())) * w4
+    else:
+        need = torch.zeros((recv.shape[1],), dtype=torch.bool,
+                           device=x.device)
+        need[cols.long()[kw["vals"] != 0] - x.numel() // nl] = True
+        if with_lanes:
+            need[own[0]:own[1]] = True
+        nbytes += int(need.sum()) * w4
+    if cols is not None:
+        nbytes += cols.numel() * (4 + w4)
         entries += int((kw["vals"] != 0).sum())
     return nbytes, 2 * entries
 
@@ -1950,6 +1998,10 @@ def rank_cell(mesh, a, b, ell_fn, cfg, hier_kw, shard_levels: int):
     doc, _, hs = rank_hierarchy(mesh, whole, a.to_scipy(), b, hier_kw,
                                 shard_levels)
     doc.update(launches=g.launch_counts(), halo=setup.matrices[0].shard[2],
+               transfers=[dict(reach=lvl.tplan.reach,
+                               rows=lvl.tplan.npad_f,
+                               gathered=lvl.tplan.gathered)
+                          for lvl in hs.levels[:shard_levels]],
                times=dict(to_ell=t_ell, setup=t_setup,
                           gather_setup=t_gather, **doc["times"]))
     return doc, setup, whole, hs
@@ -1975,88 +2027,99 @@ def multicard_kinds(mesh, whole, a, b) -> tuple[dict, dict]:
     return out, hiers
 
 
-def multicard_state_kernels(mesh, hiers, mats, timing: bool):
-    """``hyb_spmv_sharded`` on the new operands of a rank's block: gs2's
-    lower and upper halves (one-sided halo) and ilu0's L and U (index-list
-    exchange) on levels 0 and 1, each launch bitwise its plain version on
-    the buffers received from the other rank; the bytes each rank hands
-    the transport per SpMV; on rank 0 (``timing``) each timed beside its
-    plain version, cuSPARSE on this rank's rows of the same triangle or
-    factor (reading the whole x) and its bound."""
+def rank_op_kernels(mesh, ops_, seed: int, timing: bool):
+    """``hyb_spmv_sharded`` on sharded operators of a rank's block: each
+    ``(name, lvl, op, whole, part)`` launched once on a probe, bitwise its
+    plain version on the buffers received from the other ranks and the
+    operator's own SpMV; the bytes this rank hands the transport per
+    SpMV; on rank 0 (``timing``) each timed beside its plain version,
+    cuSPARSE on this rank's rows of ``whole`` (``part``: its strictly
+    lower or upper triangle, its nonzeros, or all its slots), reading the
+    whole x, and its bound (on the all-gather route the gathered x counted
+    once).  Returns the records and the bytes by ``"level <lvl>
+    <name>"``."""
     import numpy as np
     import torch
     from multigridsolver_tpu_torch.ops import gather as g
     from multigridsolver_tpu_torch.parallel import repad_ell
-    rs = np.random.RandomState(11 + mesh.rank)
+    rs = np.random.RandomState(seed + mesh.rank)
     comm = mesh.comm
     recs, sent = [], {}
-    for lvl in (0, 1):
-        (gh, gs), (ih, ist) = hiers["gs2"], hiers["ilu0"]
-        ops_ = [("gs2 lower", gs.levels[lvl].smoother.lower, mats[lvl],
-                 "lower"),
-                ("gs2 upper", gs.levels[lvl].smoother.upper, mats[lvl],
-                 "upper"),
-                ("ilu0 L", ist.levels[lvl].smoother.lmat,
-                 ih.levels[lvl].smoother.lmat, "factor"),
-                ("ilu0 U", ist.levels[lvl].smoother.umat,
-                 ih.levels[lvl].smoother.umat, "factor")]
-        for name, op, ref, part in ops_:
-            xv = torch.from_numpy(rs.rand(op.npad)).to(mesh.device,
-                                                       torch.float32)
-            comm.reset_counts()
-            args, kw = op.kernel_args(xv)
-            torch.cuda.synchronize()
-            sent[f"level {lvl} {name}"] = dict(comm.sent)
-            y = g.hyb_spmv_sharded(*args, **kw)
-            check_bits(y, g.hyb_spmv_sharded_plain(*args, **kw),
-                       f"hyb_spmv_sharded {name} level {lvl} on a rank's "
-                       "block")
-            check_bits(op.spmv(xv), y, f"{name} level {lvl} spmv")
-            xw = mesh.gather_rows(xv)
-            if not timing:
-                continue
-            ell = repad_ell(ref, xw.shape[0])
-            lo, hi = mesh.local_rows(xw.shape[0])
-            ri = ell.row_iota()
-            keep = ell.slot_mask() & {
-                "lower": ell.cols < ri, "upper": ell.cols > ri,
-                "factor": ell.vals != 0}[part]
-            csr = csr_of(ell.cols[:, lo:hi], ell.vals[:, lo:hi],
-                         keep[:, lo:hi], xw.shape[0])
-            check(torch.allclose(torch.mv(csr, xw), y, rtol=1e-4,
-                                 atol=1e-4),
-                  f"{name} level {lvl}: the cuSPARSE yardstick computes "
-                  "another function")
-            nbytes, flops = sharded_spmv_bound(args, kw)
-            halo = kw.get("halo")
-            recs.append(record(
-                {}, "hyb_spmv_sharded", f"rank block level {lvl} {name} "
-                f"f32 nlocal={mesh.nlocal} npr={op.npad // mesh.nlocal} "
-                f"D={args[1].d} w={0 if halo is None else halo.shape[2]} "
-                f"K={0 if kw['cols'] is None else kw['cols'].shape[1]} "
-                f"route={kw['route']}", 0.0,
-                lambda: g.hyb_spmv_sharded(*args, **kw),
-                lambda: g.hyb_spmv_sharded_plain(*args, **kw),
-                lambda: torch.mv(csr, xw), nbytes, flops))
+    for name, lvl, op, whole, part in ops_:
+        xv = torch.from_numpy(rs.rand(op.npad)).to(mesh.device,
+                                                   torch.float32)
+        comm.reset_counts()
+        args, kw = op.kernel_args(xv)
+        torch.cuda.synchronize()
+        sent[f"level {lvl} {name}"] = dict(comm.sent)
+        y = g.hyb_spmv_sharded(*args, **kw)
+        check_bits(y, g.hyb_spmv_sharded_plain(*args, **kw),
+                   f"hyb_spmv_sharded {name} level {lvl} on a rank's block")
+        check_bits(op.spmv(xv), y, f"{name} level {lvl} spmv")
+        xw = mesh.gather_rows(xv)
+        if not timing:
+            continue
+        ell = repad_ell(whole, xw.shape[0])
+        lo, hi = mesh.local_rows(xw.shape[0])
+        ri = ell.row_iota()
+        keep = ell.slot_mask() & {
+            "lower": ell.cols < ri, "upper": ell.cols > ri,
+            "factor": ell.vals != 0, "all": True}[part]
+        csr = csr_of(ell.cols[:, lo:hi], ell.vals[:, lo:hi],
+                     keep[:, lo:hi], xw.shape[0])
+        check(torch.allclose(torch.mv(csr, xw), y, rtol=1e-4, atol=1e-4),
+              f"{name} level {lvl}: the cuSPARSE yardstick computes "
+              "another function")
+        gathered = op.route == "all_gather" and kw["recv"] is not None
+        nbytes, flops = sharded_spmv_bound(args, kw,
+                                           (lo, hi) if gathered else None)
+        halo = kw.get("halo")
+        recs.append(record(
+            {}, "hyb_spmv_sharded", f"rank block level {lvl} {name} "
+            f"f32 nlocal={mesh.nlocal} npr={op.npad // mesh.nlocal} "
+            f"D={args[1].d} w={0 if halo is None else halo.shape[2]} "
+            f"K={0 if kw['cols'] is None else kw['cols'].shape[1]} "
+            f"remainder={op.route} kernel route={kw['route']}"
+            + (" (the all-gathered x as every shard's buffer)"
+               if gathered else ""), 0.0,
+            lambda: g.hyb_spmv_sharded(*args, **kw),
+            lambda: g.hyb_spmv_sharded_plain(*args, **kw),
+            lambda: torch.mv(csr, xw), nbytes, flops))
     torch.cuda.synchronize()
-    # the other rank waits here while rank 0 times
+    # the other ranks wait here while rank 0 times
     mesh.allreduce_sum(torch.zeros((1,), device=mesh.device))
     return recs, sent
 
 
-def multicard_gathered_kernels(mesh, fine, op, ell, timing: bool):
-    """The permuted grid's all-gather route on a rank's block: K2 on the
+def multicard_state_kernels(mesh, hiers, mats, timing: bool):
+    """``rank_op_kernels`` on the new operands of a rank's block: gs2's
+    lower and upper halves (one-sided halo) and ilu0's L and U
+    (index-list exchange) on levels 0 and 1, each against cuSPARSE on
+    this rank's rows of the same triangle or factor."""
+    (gh, gs), (ih, ist) = hiers["gs2"], hiers["ilu0"]
+    ops_ = []
+    for lvl in (0, 1):
+        gsm, ism, whole = (gs.levels[lvl].smoother, ist.levels[lvl].smoother,
+                           ih.levels[lvl].smoother)
+        ops_ += [("gs2 lower", lvl, gsm.lower, mats[lvl], "lower"),
+                 ("gs2 upper", lvl, gsm.upper, mats[lvl], "upper"),
+                 ("ilu0 L", lvl, ism.lmat, whole.lmat, "factor"),
+                 ("ilu0 U", lvl, ism.umat, whole.umat, "factor")]
+    return rank_op_kernels(mesh, ops_, 11, timing)
+
+
+def multicard_gathered_kernels(mesh, fine, op, ell, ilu, timing: bool):
+    """The permuted grid's all-gather routes on a rank's block: K2 on the
     all-gathered finest level (``a.cols`` into the whole field) bitwise
-    its plain version and a gather from the whole x; the level-0 SpMV's
-    one launch bitwise its plain version; the bytes each rank hands the
-    transport per gather and per SpMV; on rank 0 both timed beside their
-    plain versions, library calls (the SpMV's: cuSPARSE on this rank's
-    rows of the level's whole ELL ``ell``, reading the whole x) and
-    bounds."""
+    its plain version and a gather from the whole x, and on rank 0 timed
+    beside its plain version, ``index_select`` and its bound; then
+    ``rank_op_kernels`` on the level-0 operator ``op`` (its whole ELL
+    ``ell``) and on the plain-ELL L and U of the ilu0 hierarchy ``ilu``
+    (whole, sharded), all on the all-gather route.  Returns the records
+    by kernel and the bytes per gather and per SpMV."""
     import numpy as np
     import torch
     from multigridsolver_tpu_torch.ops import gather as g
-    from multigridsolver_tpu_torch.parallel import repad_ell
     rs = np.random.RandomState(21 + mesh.rank)
     comm = mesh.comm
     x = torch.from_numpy(rs.rand(fine.npad)).to(mesh.device, torch.float32)
@@ -2073,15 +2136,6 @@ def multicard_gathered_kernels(mesh, fine, op, ell, timing: bool):
                       torch.where(valid, xg[idx.long()], 0.0)),
           "K2 on the all-gathered level differs from a gather from the "
           "whole x")
-    xv = torch.from_numpy(rs.rand(op.npad)).to(mesh.device, torch.float32)
-    comm.reset_counts()
-    args, kw = op.kernel_args(xv)
-    torch.cuda.synchronize()
-    sent["level 0 spmv"] = dict(comm.sent)
-    y = g.hyb_spmv_sharded(*args, **kw)
-    check_bits(y, g.hyb_spmv_sharded_plain(*args, **kw),
-               "hyb_spmv_sharded on the all-gather route")
-    xw = mesh.gather_rows(xv)
     recs = {}
     if timing:
         w4 = x.element_size()
@@ -2092,23 +2146,16 @@ def multicard_gathered_kernels(mesh, fine, op, ell, timing: bool):
             0.0, lambda: g.take(idx, xg), lambda: g.take_plain(idx, xg),
             lambda: xg.index_select(0, flat),
             idx.numel() * (4 + w4) + touched(idx) * w4)]
-        whole = repad_ell(ell, xw.shape[0])
-        lo, hi = mesh.local_rows(xw.shape[0])
-        csr = csr_of(whole.cols[:, lo:hi], whole.vals[:, lo:hi],
-                     whole.slot_mask()[:, lo:hi], xw.shape[0])
-        check(torch.allclose(torch.mv(csr, xw), y, rtol=1e-4, atol=1e-4),
-              "the permuted level 0: the cuSPARSE yardstick computes "
-              "another function")
-        nbytes, flops = sharded_spmv_bound(args, kw)
-        recs["hyb_spmv_sharded"] = [record(
-            {}, "hyb_spmv_sharded", f"rank block permuted level 0 f32 "
-            f"nlocal={mesh.nlocal} npr={op.npad // mesh.nlocal} "
-            f"D={args[1].d} K={kw['cols'].shape[1]} all-gathered x as every "
-            "shard's buffer", 0.0, lambda: g.hyb_spmv_sharded(*args, **kw),
-            lambda: g.hyb_spmv_sharded_plain(*args, **kw),
-            lambda: torch.mv(csr, xw), nbytes, flops)]
     torch.cuda.synchronize()
     mesh.allreduce_sum(torch.zeros((1,), device=mesh.device))
+    whole, sharded = (h.levels[0].smoother for h in ilu)
+    spmv_recs, spmv_sent = rank_op_kernels(mesh, [
+        ("permuted A", 0, op, ell, "all"),
+        ("permuted ilu0 L", 0, sharded.lmat, whole.lmat, "factor"),
+        ("permuted ilu0 U", 0, sharded.umat, whole.umat, "factor")], 21,
+        timing)
+    sent.update(spmv_sent)
+    recs["hyb_spmv_sharded"] = spmv_recs
     return recs, sent
 
 
@@ -2193,9 +2240,17 @@ def multicard_rank(out_dir: str, backend: str, device: str,
         mesh, perm_a, b, lambda: perm_a.to_ell(dtype=torch.float32,
                                                device=dev),
         bench_config(), BENCH_HIERARCHY, PERMUTED_SHARD_LEVELS)
+    # its ilu0 K-cycle: L and U plain ELLs whose exchange plans are
+    # refused, on the all-gather route
+    g.reset_launch_counts()
+    perm_ilu, *ilu = rank_hierarchy(
+        mesh, perm_whole, perm_a.to_scipy(), b,
+        dict(KCYCLE, smoother_kind="ilu0"), PERMUTED_SHARD_LEVELS)
+    permuted["ilu0"] = dict(perm_ilu, launches=g.launch_counts())
     gathered_recs, gathered_bytes = multicard_gathered_kernels(
         mesh, perm_setup.matrices[0], perm_hs.levels[0].a,
-        perm_whole.matrices[0], timing)
+        perm_whole.matrices[0], ilu, timing)
+    del ilu
     t_perm = time.perf_counter() - t0
     new_bytes.update(gathered_bytes)
     if timing:
@@ -2229,19 +2284,16 @@ def multicard_rank(out_dir: str, backend: str, device: str,
     return 0
 
 
-def phase_csky(device, res) -> dict:
-    """The nonsymmetric cell on the card: csky3d(80) through ``to_ell``
-    with the transposed-value field → ``build_amg_setup`` (union strength,
-    Galerkin with the field as K3's fourth source) → ``build_hierarchy``
-    → ``solve_refined`` to 1e-8 and one ``solve_hierarchy`` to 1e-6, each
-    timed, held to the JAX package's CPU run of the same input (levels,
-    inner and outer counts, iterations), with the launch counts of that
-    run; then μ(i→j) == μ(j→i) on every level, the lookup route against
-    the field on level 0, and K3 at the member shape of the first pass."""
+def csky_run(device, refine: bool) -> dict:
+    """csky3d(80) f32 in one process through the entry points: ``to_ell``
+    with the transposed-value field → ``build_amg_setup(csky_config())``
+    → ``build_hierarchy`` → ``solve_refined`` to 1e-8 (where ``refine``)
+    and one ``solve_hierarchy`` to 1e-6, each timed.  The csky phase
+    checks it; ``--multicard-only`` runs it alone as the multicard
+    phase's one-process reference."""
     import numpy as np
     import torch
     from multigridsolver_tpu_torch.cli.generators import csky3d
-    from multigridsolver_tpu_torch.ops import gather as g
     from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
     from multigridsolver_tpu_torch.solve.api import (solve_hierarchy,
                                                      solve_refined)
@@ -2250,27 +2302,62 @@ def phase_csky(device, res) -> dict:
                                                         CSKY_GRID,
                                                         CSKY_REFINE,
                                                         csky_config)
-    tag = f"csky3d{CSKY_GRID} float32"
     a, t_gen = timed(lambda: csky3d(CSKY_GRID))
-    a_sp = a.to_scipy()
     b = np.random.RandomState(0).rand(a.nrows)
+    ell, t_ell = timed(lambda: a.to_ell(dtype=torch.float32, device=device,
+                                        with_transpose=True))
+    setup, t_setup = timed(lambda: build_amg_setup(ell, csky_config()))
+    hier, t_hier = timed(lambda: build_hierarchy(
+        setup.matrices[0], setup.level_labels, setup.matrices[1:],
+        **BENCH_HIERARCHY))
+    run = dict(a=a, b=b, ell=ell, setup=setup, hier=hier)
+    times = dict(generate=t_gen, to_ell=t_ell, setup=t_setup,
+                 hierarchy=t_hier)
+    if refine:
+        run["refined"], times["solve_refined"] = timed(
+            lambda: solve_refined(hier, a, b, **CSKY_REFINE))
+    run["res6"], times["solve_1e6"] = timed(lambda: solve_hierarchy(
+        hier, b, method="bicgstab", tol=1e-6, maxiter=200))
+    run["times"] = times
+    return run
+
+
+def check_csky_run(tag, run) -> None:
+    """csky3d(80)'s levels and 1e-6 count against the JAX CPU anchor."""
+    levels = [m.nrows for m in run["setup"].matrices]
+    res6 = run["res6"]
+    check(levels == CSKY_EXPECT["levels"],
+          f"{tag}: levels {levels} differ from {CSKY_EXPECT['levels']}")
+    check(res6.status == 0 and res6.relres < 1e-6
+          and res6.iterations == CSKY_EXPECT["iterations"],
+          f"{tag}: the 1e-6 solve took {res6.iterations} iterations "
+          f"(status {res6.status}, relres {res6.relres}), the JAX CPU run "
+          f"took {CSKY_EXPECT['iterations']}")
+
+
+def phase_csky(device, res) -> dict:
+    """The nonsymmetric cell on the card (``csky_run``): csky3d(80)
+    through ``to_ell`` with the transposed-value field →
+    ``build_amg_setup`` (union strength, Galerkin with the field as K3's
+    fourth source) → ``build_hierarchy`` → ``solve_refined`` to 1e-8 and
+    one ``solve_hierarchy`` to 1e-6, each timed, held to the JAX package's
+    CPU run of the same input (levels, inner and outer counts,
+    iterations), with the launch counts of that run; then μ(i→j) ==
+    μ(j→i) on every level, the lookup route against the field on level 0,
+    and K3 at the member shape of the first pass."""
+    import numpy as np
+    from multigridsolver_tpu_torch.ops import gather as g
+    from multigridsolver_tpu_torch.utils.config import CSKY_GRID, csky_config
+    tag = f"csky3d{CSKY_GRID} float32"
     cfg = csky_config()
     g.reset_launch_counts()
     with g.launch_shapes() as shapes:
-        ell, t_ell = timed(lambda: a.to_ell(dtype=torch.float32,
-                                            device=device,
-                                            with_transpose=True))
-        setup, t_setup = timed(lambda: build_amg_setup(ell, cfg))
-        hier, t_hier = timed(lambda: build_hierarchy(
-            setup.matrices[0], setup.level_labels, setup.matrices[1:],
-            **BENCH_HIERARCHY))
-        (x, relres, inner, outer), t_ref = timed(lambda: solve_refined(
-            hier, a, b, **CSKY_REFINE))
-        res6, t_solve = timed(lambda: solve_hierarchy(
-            hier, b, method="bicgstab", tol=1e-6, maxiter=200))
+        run = csky_run(device, refine=True)
     counts = g.launch_counts()
-    times = dict(generate=t_gen, to_ell=t_ell, setup=t_setup,
-                 hierarchy=t_hier, solve_1e6=t_solve, solve_refined=t_ref)
+    a, b, ell, setup, hier, times = (run[k] for k in (
+        "a", "b", "ell", "setup", "hier", "times"))
+    x, relres, inner, outer = run["refined"]
+    res6 = run["res6"]
     levels = [m.nrows for m in setup.matrices]
     log(f"{tag}: n={a.nrows} nnz={a.nnz} union nnz={ell.nnz} K={ell.k}")
     log(f"{tag} levels: {levels}")
@@ -2284,23 +2371,17 @@ def phase_csky(device, res) -> dict:
         f"relres={res6.relres!r} status={res6.status}")
     log(f"{tag} launches: {json.dumps(counts)}")
     log_shapes(shapes)
-    check(levels == CSKY_EXPECT["levels"],
-          f"{tag}: levels {levels} differ from {CSKY_EXPECT['levels']}")
+    check_csky_run(tag, run)
     check(all(m.vals_t is not None for m in setup.matrices),
           f"{tag}: a level lost the transposed-value field")
     check(bool(np.isfinite(x).all()) and x.shape == (a.nrows,),
           f"{tag}: refined solution is not finite or has the wrong shape")
-    true_res = float(np.linalg.norm(b - a_sp @ x) / np.linalg.norm(b))
+    true_res, _ = true_residual(a.to_scipy(), b, x)
     check(relres < 1e-8 and true_res < 1e-8,
           f"{tag}: refined relres {relres} (true {true_res}) >= 1e-8")
     check((inner, outer) == (CSKY_EXPECT["inner"], CSKY_EXPECT["outer"]),
           f"{tag}: {inner} inner / {outer} outer iterations, the JAX CPU "
           f"run took {CSKY_EXPECT['inner']} / {CSKY_EXPECT['outer']}")
-    check(res6.status == 0 and res6.relres < 1e-6
-          and res6.iterations == CSKY_EXPECT["iterations"],
-          f"{tag}: the 1e-6 solve took {res6.iterations} iterations "
-          f"(status {res6.status}, relres {res6.relres}), the JAX CPU run "
-          f"took {CSKY_EXPECT['iterations']}")
     for name in ("gather_spmv", "hyb_spmv", "take", "take_rows",
                  "take_rows_many"):
         check(counts[name] > 0, f"kernel {name} was not launched by the "
@@ -2509,14 +2590,10 @@ def solve_checks(tag, res, a_sp, b, tol=1e-6, true_bound=True) -> dict:
     path holds 1e-6 to 1e-5, unless ``true_bound`` is False); returns the
     logged row."""
     import numpy as np
-    import torch
     x = res.x.double().cpu().numpy()
     check(bool(np.isfinite(x).all()) and x.shape == (a_sp.shape[0],),
           f"{tag}: solution is not finite or has the wrong shape")
-    nb = np.linalg.norm(b)
-    true_res = float(np.linalg.norm(b - a_sp @ x) / nb)
-    floor = float(torch.finfo(torch.float32).eps / 2
-                  * np.linalg.norm(abs(a_sp) @ np.abs(x)) / nb)
+    true_res, floor = true_residual(a_sp, b, x)
     check(res.status == 0, f"{tag}: status {res.status}")
     check(res.relres < tol, f"{tag}: relres {res.relres} >= {tol}")
     check(true_res < 10 * tol + 2 * floor or not true_bound,
@@ -3679,9 +3756,11 @@ def main() -> int:
             # ranks as cards (NCCL) where there are two or more, else two
             # on the card (gloo), each of 4 / ranks shards: no result lines
             ranks = max(torch.cuda.device_count(), MULTICARD_RANKS)
-            phase_multicard(phase_main_path(device, problem), {}, {},
-                            csky_reference(device), phase_permuted(device),
-                            ranks=ranks, spr=max(4 // ranks, 1))
+            csky = csky_run(device, refine=False)
+            check_csky_run("csky3d80 float32 reference", csky)
+            phase_multicard(phase_main_path(device, problem), {}, {}, csky,
+                            phase_permuted(device), ranks=ranks,
+                            spr=max(4 // ranks, 1))
             log("chip_smoke: the multicard phase passed")
             return 0
         kres, floor_ms = phase_kernels(device, problem)

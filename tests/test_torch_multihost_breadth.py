@@ -25,6 +25,13 @@ runs, on a mesh whose sharded levels span both ranks:
 * ``check_replicated`` on a hierarchy one of whose ranks holds ilu0
   factors that differ in one bit: both ranks refuse it.
 
+A second start, of four ranks × one shard at the same time, runs the
+permuted poisson2d(64) with ilu0 and its finest level alone sharded:
+there aggregates reach past the next rank, so the restriction reads the
+whole vector, all-gathered, and the plain-ELL L and U take the
+all-gather route.  Held to one process: the restriction bitwise, labels
+bitwise, the same count.
+
 The JAX reference runs in the test process while the ranks work.  Run
 alone with ``python -m pytest tests/test_torch_multihost_breadth.py -q
 -n 0``.
@@ -42,6 +49,8 @@ import torch
 
 from multigridsolver_tpu_torch.cli.generators import csky3d, poisson2d
 from multigridsolver_tpu_torch.ops import gather as g
+from multigridsolver_tpu_torch.parallel import RowMesh, shard_hierarchy
+from multigridsolver_tpu_torch.setup import transfers as tf
 from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
 from multigridsolver_tpu_torch.solve.api import pad_vector, solve_hierarchy
 from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
@@ -54,6 +63,8 @@ from multigridsolver_tpu_torch.utils.config import (AggregationConfig,
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 RANKS = 2
+# the second start: four ranks of one shard each
+GATHERED_RANKS = 4
 GRID = 64
 CSKY = 20
 SHARDS_PER_RANK = 2
@@ -220,6 +231,39 @@ def flipped_digest(mesh) -> str:
     return ""
 
 
+def gathered_main(out_dir: str) -> None:
+    """One of four ranks × one shard: the permuted poisson2d(64) through
+    the entry points with ilu0, its finest level alone sharded; the
+    restriction of a probe and the solve."""
+    from multigridsolver_tpu_torch.parallel import (
+        build_amg_setup_sharded, gather_setup, global_row_mesh,
+        init_multihost, shutdown_multihost)
+    from multigridsolver_tpu_torch.parallel.halo import spmv_route
+    torch.set_num_threads(1)
+    comm = init_multihost(device="cpu")
+    mesh = global_row_mesh(1)
+    ell = permuted_ell()
+    whole = gather_setup(build_amg_setup_sharded(ell, config(), mesh), ell,
+                         mesh)
+    hier = build_hierarchy(whole.matrices[0], whole.level_labels,
+                           whole.matrices[1:], smoother_kind="ilu0",
+                           **KCYCLE)
+    hs = shard_hierarchy(hier, mesh, shard_levels=1)
+    res = solve_hierarchy(hs, rhs(ell.nrows), tol=TOL)
+    tp = hs.levels[0].tplan
+    v = torch.from_numpy(probe(hs.levels[0].a.npad * mesh.world, 7))
+    lo, hi = mesh.local_rows(v.shape[0])
+    sm = hs.levels[0].smoother
+    torch.save(dict(
+        labels=[l.numpy() for l in whole.level_labels],
+        iterations=res.iterations, status=res.status, relres=res.relres,
+        reach=tp.reach, rows=tp.npad_f, gathered=tp.gathered,
+        restricted=tf.restrict_fast(tp, v[lo:hi]),
+        state_routes=[spmv_route(op) for op in (sm.lmat, sm.umat)]),
+        os.path.join(out_dir, f"gathered{comm.rank}.pt"))
+    shutdown_multihost()
+
+
 def rank_main(out_dir: str) -> None:
     from multigridsolver_tpu_torch.parallel import (global_row_mesh,
                                                     init_multihost,
@@ -258,19 +302,21 @@ def jax_csky_labels() -> list:
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Both ranks' results from one start, and the JAX package's csky
-    labels, computed while the ranks run."""
+    """Both ranks' results from one start, the four ranks' of the
+    second, and the JAX package's csky labels, computed while the ranks
+    run."""
     out_dir = str(tmp_path_factory.mktemp("breadth"))
-    port = _free_port()
     procs = []
-    for r in range(RANKS):
-        env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-                   MGS_COORDINATOR=f"tcp://127.0.0.1:{port}",
-                   MGS_NUM_PROCESSES=str(RANKS), MGS_PROCESS_ID=str(r))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--rank", out_dir],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
-            text=True))
+    for mode, world in (("--rank", RANKS), ("--gathered", GATHERED_RANKS)):
+        port = _free_port()
+        for r in range(world):
+            env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+                       MGS_COORDINATOR=f"tcp://127.0.0.1:{port}",
+                       MGS_NUM_PROCESSES=str(world), MGS_PROCESS_ID=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), mode, out_dir],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+                text=True))
     try:
         jax_labels = jax_csky_labels()
         outs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
@@ -281,9 +327,12 @@ def ranks(tmp_path_factory):
         raise
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} failed:\n{out[-4000:]}"
-    return dict(jax_csky=jax_labels, ranks=[
-        torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
-        for r in range(RANKS)])
+    def load(name):
+        return torch.load(os.path.join(out_dir, name), weights_only=False)
+    return dict(jax_csky=jax_labels,
+                ranks=[load(f"rank{r}.pt") for r in range(RANKS)],
+                gathered=[load(f"gathered{r}.pt")
+                          for r in range(GATHERED_RANKS)])
 
 
 def one_process(ell, cfg, **hier_kw):
@@ -410,9 +459,42 @@ def test_check_replicated_refuses_one_flipped_factor_bit(ranks):
         assert "replicated levels differ" in r["flipped"]
 
 
+@pytest.fixture(scope="module")
+def permuted_ilu0():
+    """The port's one-process setup and ilu0 solve of the permuted grid."""
+    return one_process(permuted_ell(), config(), smoother_kind="ilu0",
+                       **KCYCLE)
+
+
+def test_restriction_reads_the_whole_vector_past_the_next_rank(
+        ranks, permuted_ilu0):
+    """Over four ranks the permuted grid's aggregates reach past the next
+    rank: each rank restricts from the all-gathered vector, bitwise the
+    one-process K1 restriction."""
+    _, h, _ = permuted_ilu0
+    hs = shard_hierarchy(h, RowMesh(GATHERED_RANKS, "cpu"), shard_levels=1)
+    want = tf.restrict_fast(hs.levels[0].tplan, torch.from_numpy(
+        probe(hs.levels[0].a.npad, 7)))
+    for r in ranks["gathered"]:
+        assert r["gathered"] and r["reach"] > r["rows"]
+        assert torch.equal(r["restricted"], want)
+
+
+def test_plain_ell_factors_on_the_all_gather_route(ranks, permuted_ilu0):
+    """ilu0's L and U of the permuted finest level, plain ELLs whose
+    exchange plans are refused, take the all-gather route over four
+    ranks: labels bitwise and the one-process count."""
+    s, _, want = permuted_ilu0
+    for r in ranks["gathered"]:
+        assert r["state_routes"] == ["all_gather", "all_gather"]
+        assert_labels(r["labels"], [l.numpy() for l in s.level_labels])
+        assert r["status"] == 0 and r["relres"] < TOL
+        assert r["iterations"] == want.iterations
+
+
 if __name__ == "__main__":
-    # python tests/test_torch_multihost_breadth.py --rank OUT_DIR
+    # python tests/test_torch_multihost_breadth.py --rank|--gathered OUT_DIR
     mode, out_dir = sys.argv[1:3]
-    if mode != "--rank":
+    if mode not in ("--rank", "--gathered"):
         sys.exit(f"unknown mode {mode}")
-    rank_main(out_dir)
+    (rank_main if mode == "--rank" else gathered_main)(out_dir)
