@@ -76,10 +76,18 @@ Phases, each printing a line:
    route, with Chebyshev and with ilu0 (its plain-ELL L and U on that
    route), held to its one-process run; each new route's launch is
    checked bitwise on the rank's block, and every sharded level's route
-   and restriction branch is printed.  ``python3 chip_smoke.py
-   --multicard-only`` runs the main path, csky3d(80)'s and the permuted
-   grid's one-process runs and this phase alone, with as many ranks as
-   cards;
+   and restriction branch is printed.  Last, checktentagg over the ranks:
+   csky3d(80) with the quality phase's checked configuration, held to
+   its JAX CPU anchor (levels, label hashes, the verdict log of every
+   call, 8 iterations at 1e-6), and poisson1000 with ``check_tentagg``,
+   held to its one-process run on the card (levels, labels bitwise, the
+   verdict log, the count); every launch of K2, K3, K4 and the halo fill
+   in their checked passes compared bitwise with its plain version, the
+   first of each kernel and word type on the sharded level timed on rank
+   0, and the bytes each rank hands the transport per checked pass.
+   ``python3 chip_smoke.py --multicard-only`` runs the main path,
+   csky3d(80)'s, the permuted grid's and the checked poisson1000's
+   one-process runs and this phase alone, with as many ranks as cards;
 8. nonsymmetric cell: csky3d(80) (n = 512,000) through ``to_ell`` with the
    transposed-value field → ``build_amg_setup`` (union strength, the field
    as K3's fourth source) → ``build_hierarchy`` → ``solve_refined`` to
@@ -1527,8 +1535,48 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def phase_checked_one(device, problem) -> dict:
+    """poisson1000 f32 with checktentagg in one process on the card, the
+    reference of the multicard phase's checked cell: levels, labels, the
+    verdict log and which passes ran checked, the 1e-6 BiCGStab count
+    and the walls."""
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
+    from multigridsolver_tpu_torch.solve.api import solve_hierarchy
+    from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
+    from multigridsolver_tpu_torch.utils.config import (BENCH_HIERARCHY,
+                                                        bench_config)
+    tag = "poisson1000 float32 check_tentagg, one process"
+    b = np.random.RandomState(0).rand(problem.nrows)
+    ell, t_ell = timed(lambda: problem.to_ell(dtype=torch.float32,
+                                              device=device))
+    setup, t_setup = timed(lambda: build_amg_setup(
+        ell, checked_config(bench_config())))
+    hier, t_hier = timed(lambda: build_hierarchy(
+        setup.matrices[0], setup.level_labels, setup.matrices[1:],
+        **BENCH_HIERARCHY))
+    res, t_solve = timed(lambda: solve_hierarchy(
+        hier, b, method="bicgstab", tol=1e-6, maxiter=200))
+    out = dict(levels=[m.nrows for m in setup.matrices],
+               labels=[l.cpu() for l in setup.level_labels],
+               checks=verdict_log(setup), checked=checked_passes(setup),
+               iterations=res.iterations,
+               times=dict(to_ell=t_ell, setup=t_setup, hierarchy=t_hier,
+                          solve=t_solve))
+    log(f"{tag}: levels {out['levels']}, {res.iterations} iterations, "
+        f"relres {res.relres!r}, status {res.status}; checked passes "
+        f"{out['checked']}; verdict log {out['checks']}; seconds "
+        + json.dumps(out["times"]))
+    check(res.status == 0 and res.relres < 1e-6,
+          f"{tag}: status {res.status} relres {res.relres}")
+    check(any(any(r) for r in out["checked"]),
+          f"{tag}: no pass ran checked")
+    return out
+
+
 def phase_multicard(unsharded, sharded_times, res, csky, permuted,
-                    ranks: int = MULTICARD_RANKS,
+                    checked_one, ranks: int = MULTICARD_RANKS,
                     spr: int = MULTICARD_SHARDS_PER_RANK) -> dict:
     """The main path over ranks: two rank processes of this script, joined
     over ``torch.distributed`` (``multicard_rank``; ``ranks`` of ``spr``
@@ -1544,10 +1592,13 @@ def phase_multicard(unsharded, sharded_times, res, csky, permuted,
     smoother kind on that setup, csky3d80 on the union route (held to the
     one-process ``csky`` run's labels and the anchor) and the permuted
     grid on the all-gather route, with Chebyshev and with ilu0 (held to
-    ``permuted``, its one-process run).  A rank that fails or outlives
-    the timeout fails the phase.  Returns the launch counts of both ranks
-    by path (the main path, the kinds, csky, the permuted grid and its
-    ilu0 K-cycle), each summed over the ranks."""
+    ``permuted``, its one-process run), and checktentagg over the ranks
+    on csky3d80 and poisson1000 (held to the JAX CPU anchor and to
+    ``checked_one``, the one-process checked run).  A rank that fails or
+    outlives the timeout fails the phase.  Returns the launch counts of
+    both ranks by path (the main path, the kinds, csky, the permuted grid
+    and its ilu0 K-cycle, the checked cells), each summed over the
+    ranks."""
     import tempfile
     import numpy as np
     import torch
@@ -1645,7 +1696,7 @@ def phase_multicard(unsharded, sharded_times, res, csky, permuted,
                        for k, v in rk["times"].items()))
     for name, recs in docs[0]["kernels"].items():
         res.setdefault(name, {"max_abs_err": 0.0})["rank_block"] = recs
-    paths = multicard_cells(tag, docs, whole, csky, permuted)
+    paths = multicard_cells(tag, docs, whole, csky, permuted, checked_one)
     log(f"{tag}: phase wall {wall:.3f} s (the ranks' starts and every "
         "cell included)")
 
@@ -1656,7 +1707,7 @@ def phase_multicard(unsharded, sharded_times, res, csky, permuted,
             **{f"multicard_{p}": summed(c) for p, c in paths.items()}}
 
 
-def multicard_cells(tag, docs, whole, csky, permuted) -> dict:
+def multicard_cells(tag, docs, whole, csky, permuted, checked_one) -> dict:
     """The multicard phase's further cells, held rank by rank: each
     smoother kind's count (``SMOOTHER_EXPECT``), relres, true residual
     under the float32 floor and one replicated digest on every rank;
@@ -1666,8 +1717,8 @@ def multicard_cells(tag, docs, whole, csky, permuted) -> dict:
     solve's true residual under the float32 floor and its restriction's
     branch; the permuted grid's ilu0 count, the one-process run's, with
     its plain-ELL L and U on the all-gather route; the route of every
-    sharded level; each new route's bytes per SpMV.  Returns each cell's
-    launches per rank."""
+    sharded level; each new route's bytes per SpMV; the checked cells
+    (``checked_cells_held``).  Returns each cell's launches per rank."""
     import torch
     paths = {"kinds": [], "csky": [], "permuted": [], "permuted_ilu0": []}
     for kind in SHARDED_KINDS:
@@ -1797,6 +1848,107 @@ def multicard_cells(tag, docs, whole, csky, permuted) -> dict:
                 f"transport per call (measured) {json.dumps(sent)}")
         log(f"{tag} rank {rk['rank']} cell walls s: "
             f"{json.dumps(rk['cell_walls'])}")
+    paths.update(checked_cells_held(tag, docs, whole, checked_one))
+    return paths
+
+
+def checked_cells_held(tag, docs, whole, checked_one) -> dict:
+    """The checked cells over the ranks, held rank by rank: csky3d80 to
+    the JAX CPU anchor ``QUALITY_EXPECT["csky_check"]`` (levels, every
+    level's labels by SHA-256, the tentative and rejected pairs of every
+    checktentagg call, the 1e-6 count), poisson1000 to its one-process
+    run on the card (levels, labels bitwise, the verdict log, the checked
+    passes, the count); each solve's true residual under the float32
+    floor; every launch of K2, K3, K4 and the halo fill in the checked
+    passes compared bitwise with its plain version (each kernel at least
+    once, on the sharded level K4 and the halo fill); the bytes each rank
+    handed the transport per checked pass on the sharded level.  Returns
+    each cell's launches per rank."""
+    import torch
+    want = QUALITY_EXPECT["csky_check"]
+    paths = {"csky_check": [], "poisson_check": []}
+    for cell, levels, checks, its, passes in (
+            ("csky_check", want["levels"], want["checks"],
+             want["iterations"], None),
+            ("poisson_check", checked_one["levels"], checked_one["checks"],
+             checked_one["iterations"], checked_one["checked"])):
+        ctag = f"{tag} {cell}"
+        for rk in docs:
+            got = rk[cell]
+            log(f"{ctag} rank {rk['rank']}: " + json.dumps(
+                {k: got[k] for k in ("levels", "iterations", "relres",
+                                     "status", "true_relres",
+                                     "storage_floor", "halo", "times",
+                                     "wall")}))
+            log(f"{ctag} rank {rk['rank']} launches: "
+                f"{json.dumps(got['launches'])}; in the checked passes "
+                f"{json.dumps(got['watch']['launches'])}, compared with "
+                f"the plain versions {json.dumps(got['watch']['compared'])}")
+            check(got["levels"] == levels,
+                  f"{ctag}: levels {got['levels']}, expected {levels}")
+            check([list(c) for c in got["checks"]]
+                  == [list(c) for c in checks],
+                  f"{ctag}: rank {rk['rank']} verdict log {got['checks']}, "
+                  f"expected {checks}")
+            check(passes is None or got["checked"] == passes,
+                  f"{ctag}: rank {rk['rank']} checked passes "
+                  f"{got['checked']}, one process {passes}")
+            check(got["status"] == 0 and got["relres"] < 1e-6
+                  and got["iterations"] == its,
+                  f"{ctag}: rank {rk['rank']} took {got['iterations']} "
+                  f"iterations (status {got['status']}, relres "
+                  f"{got['relres']}), expected {its}")
+            check_true_residual(f"{ctag} rank {rk['rank']}",
+                                got["true_relres"], got["storage_floor"])
+            launched, compared = (got["watch"]["launches"],
+                                  got["watch"]["compared"])
+            for name in CHECKED_KERNELS:
+                check(compared.get(name, 0) >= launched.get(name, 0),
+                      f"{ctag}: rank {rk['rank']}: {launched.get(name)} "
+                      f"{name} launches in the checked passes, "
+                      f"{compared.get(name)} compared")
+            for name in ("take", "take_rows_many", "take_sharded",
+                         "halo_fill"):
+                check(launched.get(name, 0) > 0,
+                      f"{ctag}: rank {rk['rank']}: no {name} launch in the "
+                      "checked passes")
+            per_pass: dict = {}
+            for call in got["watch"]["calls"]:
+                if call["sharded"]:
+                    for k, v in call["sent"].items():
+                        per_pass[k] = per_pass.get(k, 0) + v
+            first = [(c["km"], c["ncp"]) for c in got["watch"]["calls"]
+                     if c["sharded"]]
+            log(f"{ctag} rank {rk['rank']}: bytes handed to the transport "
+                f"per checked pass on the sharded level (measured; its "
+                f"checktentagg calls' (km, ncp) {first}): "
+                f"{json.dumps(per_pass)}, total {sum(per_pass.values())}")
+            check(per_pass.get("all_reduce_max", 0) > 0
+                  and per_pass.get("all_gather", 0) > 0,
+                  f"{ctag}: rank {rk['rank']}: the checked pass on the "
+                  "sharded level ran no collective")
+            paths[cell].append(got["launches"])
+        mine = whole[f"{cell}_labels"]
+        check(len(mine) == len(levels) - 1,
+              f"{ctag}: {len(mine)} label vectors for {len(levels)} levels")
+        if cell == "csky_check":
+            hashes = [sha256_of(l.to(torch.int32), n)
+                      for l, n in zip(mine, levels)]
+            parted = [i for i, (h, w) in enumerate(
+                zip(hashes, want["labels_sha256"])) if h != w]
+            check(not parted, f"{ctag}: labels of levels {parted} differ "
+                  "from the JAX CPU run's")
+        else:
+            for lvl, (got, ref) in enumerate(zip(mine,
+                                                 checked_one["labels"])):
+                n = levels[lvl]
+                check(torch.equal(got[:n], ref[:n]),
+                      f"{ctag}: level {lvl} labels differ from the "
+                      "one-process run")
+        log(f"{ctag}: levels {levels}, {its} iterations, the verdict log "
+            f"of {len(checks)} checktentagg calls and every level's labels "
+            + ("by SHA-256 the JAX CPU run's" if cell == "csky_check"
+               else "bitwise the one-process run's") + " on every rank")
     return paths
 
 
@@ -1982,18 +2134,22 @@ def rank_hierarchy(mesh, whole, a_sp, b, hier_kw, shard_levels: int):
     return doc, hier, hs
 
 
-def rank_cell(mesh, a, b, ell_fn, cfg, hier_kw, shard_levels: int):
+def rank_cell(mesh, a, b, ell_fn, cfg, hier_kw, shard_levels: int,
+              setup_ctx=None):
     """One configuration over the ranks through the entry points:
-    ``build_amg_setup_sharded`` → ``gather_setup`` → ``rank_hierarchy``,
-    its launches counted from 0 and its walls.  Returns the cell's
-    record, the sharded setup, the whole one and the sharded
-    hierarchy."""
+    ``build_amg_setup_sharded`` (inside ``setup_ctx``, a context manager,
+    where given) → ``gather_setup`` → ``rank_hierarchy``, its launches
+    counted from 0 and its walls.  Returns the cell's record, the sharded
+    setup, the whole one and the sharded hierarchy."""
+    import contextlib
     from multigridsolver_tpu_torch.ops import gather as g
     from multigridsolver_tpu_torch.parallel import (build_amg_setup_sharded,
                                                     gather_setup)
     g.reset_launch_counts()
     ell, t_ell = timed(ell_fn)
-    setup, t_setup = timed(lambda: build_amg_setup_sharded(ell, cfg, mesh))
+    with setup_ctx or contextlib.nullcontext():
+        setup, t_setup = timed(lambda: build_amg_setup_sharded(ell, cfg,
+                                                               mesh))
     whole, t_gather = timed(lambda: gather_setup(setup, ell, mesh))
     doc, _, hs = rank_hierarchy(mesh, whole, a.to_scipy(), b, hier_kw,
                                 shard_levels)
@@ -2159,6 +2315,246 @@ def multicard_gathered_kernels(mesh, fine, op, ell, ilu, timing: bool):
     return recs, sent
 
 
+def checked_config(base):
+    """``base`` (a ``HierarchyConfig``) with checktentagg on."""
+    import dataclasses
+    return dataclasses.replace(base, aggregation=dataclasses.replace(
+        base.aggregation, check_tentagg=True))
+
+
+def verdict_log(setup) -> list:
+    """Every checktentagg call's (tentative pairs, rejected pairs), in
+    order."""
+    return [(int(c["pairs"]), int(c["rejected"])) for r in setup.rounds
+            for p in r.passes if p.checks for c in p.checks]
+
+
+def checked_passes(setup) -> list:
+    """Per round, per pass: whether the pass ran checked."""
+    return [[p.checks is not None for p in r.passes] for r in setup.rounds]
+
+
+CHECKED_KERNELS = ("take", "take_rows", "take_rows_many", "take_sharded",
+                   "halo_fill")
+
+
+class CheckedPasses:
+    """A setup's checked passes watched on a rank: from
+    ``match_pass_checked``'s entry to the end of the Galerkin product that
+    follows it, every launch of K2, K3, K4 and the halo fill is held
+    bitwise to its plain version on the same inputs (the plain versions
+    launch nothing), its launches are counted by kernel, and the first
+    launch of each kernel and word type in a pass on the sharded level is
+    kept for timing; each checktentagg call's bytes handed to the
+    transport are read by collective.  A context manager around the
+    setup."""
+
+    def __init__(self, comm):
+        from collections import Counter
+        self.comm = comm
+        self.inside = self.sharded = False
+        self.launches: Counter = Counter()
+        self.compared: Counter = Counter()
+        self.first: dict = {}
+        self.calls: list = []
+        self._saved: list = []
+
+    def _shadow(self, name, fn, plain):
+        watch = self
+
+        class Shadowed:
+            """``fn`` in the gather module's place: it compares inside a
+            checked pass, and its ``launches`` is ``fn``'s (the kernel
+            wrapper counts through its module-level name)."""
+
+            @property
+            def launches(self):
+                return fn.launches
+
+            @launches.setter
+            def launches(self, n):
+                fn.launches = n
+
+            def __call__(self, *args, **kw):
+                out = fn(*args, **kw)
+                if watch.inside:
+                    watch._compare(name, fn, plain, out, args, kw)
+                return out
+        return Shadowed()
+
+    def _compare(self, name, fn, plain, out, args, kw):
+        ref = plain(*args, **kw)
+        for o, r in zip(out if isinstance(out, list) else [out],
+                        ref if isinstance(ref, list) else [ref]):
+            check_bits(o, r, f"{name} in a checked pass on rank "
+                       f"{self.comm.rank}")
+        self.compared[name] += 1
+        src = args[0] if name == "halo_fill" else args[1]
+        key = (name, len(src) if isinstance(src, list) else str(src.dtype))
+        if self.sharded and key not in self.first:
+            self.first[key] = (fn, plain, args, kw)
+
+    def __enter__(self):
+        from multigridsolver_tpu_torch.ops import gather as g
+        from multigridsolver_tpu_torch.setup import aggregation as agg
+        watch = self
+        for name in CHECKED_KERNELS:
+            fn = getattr(g, name)
+            self._saved.append((g, name, fn))
+            setattr(g, name, self._shadow(name, fn,
+                                          getattr(g, f"{name}_plain")))
+        matched, galerkin, tentagg = (agg.match_pass_checked,
+                                      agg.galerkin_pair_ell,
+                                      agg.checktentagg)
+
+        def match_pass_checked(mat, a0, *args, **kw):
+            watch.inside, watch.sharded = True, a0.shard is not None
+            watch._before = g.launch_counts()
+            return matched(mat, a0, *args, **kw)
+
+        def galerkin_pair_ell(*args, **kw):
+            out = galerkin(*args, **kw)
+            if watch.inside:
+                after = g.launch_counts()
+                for name in after:
+                    watch.launches[name] += after[name] - watch._before[name]
+                watch.inside = False
+            return out
+
+        def checktentagg(a0, *args, **kw):
+            before = dict(watch.comm.sent)
+            acc = tentagg(a0, *args, **kw)
+            watch.calls.append(dict(
+                km=args[6], ncp=args[3].shape[0],
+                sharded=a0.shard is not None,
+                sent={k: v - before.get(k, 0)
+                      for k, v in watch.comm.sent.items()
+                      if v != before.get(k, 0)}))
+            return acc
+        for name, fn in (("match_pass_checked", match_pass_checked),
+                         ("galerkin_pair_ell", galerkin_pair_ell),
+                         ("checktentagg", checktentagg)):
+            self._saved.append((agg, name, getattr(agg, name)))
+            setattr(agg, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved.clear()
+        return False
+
+    def summary(self) -> dict:
+        """Launches and comparisons by kernel, and each checktentagg
+        call's bytes; a checked pass's bytes are its three calls'."""
+        return dict(launches=dict(self.launches),
+                    compared=dict(self.compared), calls=self.calls)
+
+    def record_first(self, mesh, tag: str, timing: bool) -> dict:
+        """On rank 0 (``timing``) each kept launch timed beside its plain
+        version, its library call and its bound, while the other ranks
+        wait.  Returns the records by kernel."""
+        import torch
+        recs: dict = {}
+        for (name, word), (fn, plain, args, kw) in sorted(
+                self.first.items()) if timing else ():
+            recs.setdefault(name, []).append(
+                checked_record(name, word, fn, plain, args, kw, tag))
+        torch.cuda.synchronize()
+        mesh.allreduce_sum(torch.zeros((1,), device=mesh.device))
+        return recs
+
+
+def checked_record(name, word, fn, plain, args, kw, tag) -> dict:
+    """One kept launch of a checked pass timed (``CheckedPasses``): K2 and
+    K3 beside ``index_select`` where one call computes the same function,
+    K4 beside the halo ``cat`` and ``index_select``, the halo fill with
+    none; the bound from each index and output word and each distinct
+    source word once."""
+    import torch
+    if name == "take":
+        idx, x = args
+        flat = idx.long().clamp(0, x.shape[0] - 1).reshape(-1)
+        library = (lambda: x.index_select(0, flat))
+        w = x.element_size()
+        nbytes = idx.numel() * (4 + w) + touched(flat) * w
+        shape = f"idx={tuple(idx.shape)} of {x.shape[0]} {word}"
+    elif name == "take_sharded":
+        idx, x, halo, npr, h = args
+        base = kw.get("base", 0)
+        nl = halo.shape[0]
+        ext = npr + 2 * h
+        rows = torch.arange(idx.shape[-1], device=idx.device) // npr
+        c = (idx.long() - (base + rows * npr - h)).clamp(0, ext - 1)
+        ext_idx = (rows * ext + c).reshape(-1)
+        xs = x.view(nl, npr)
+
+        def library():
+            return torch.cat([halo[:, 0], xs, halo[:, 1]], 1).view(-1) \
+                .index_select(0, ext_idx)
+        w = x.element_size()
+        nbytes = idx.numel() * (4 + w) + touched(ext_idx) * w
+        shape = (f"idx={tuple(idx.shape)} {word} {nl} shards npr={npr} "
+                 f"h={h} base={base}")
+    elif name == "halo_fill":
+        x, nl, h = args[:3]
+        library = None
+        nbytes = 4 * nl * h * x.element_size()
+        shape = f"({nl}, 2, {h}) {word} from npr {x.shape[0] // nl}"
+    else:
+        idx, srcs = args
+        srcs = srcs if isinstance(srcs, list) else [srcs]
+        n = idx.numel()
+        flat = idx.long().clamp(0, srcs[0].shape[1] - 1)
+        library = ((lambda: srcs[0].index_select(1, flat))
+                   if len(srcs) == 1 else None)
+        nbytes = n * 4 + sum(xs.shape[0] * (n + touched(flat))
+                             * xs.element_size() for xs in srcs)
+        shape = (f"n={n} of {srcs[0].shape[1]}, sources "
+                 + "+".join(f"{xs.shape[0]}x{str(xs.dtype)[6:]}"
+                            for xs in srcs))
+    return record({}, name, f"{tag}, a checked pass on a rank's block: "
+                  f"{shape}", 0.0, lambda: fn(*args, **kw),
+                  lambda: plain(*args, **kw), library, nbytes)
+
+
+def checked_cells(mesh, a, b, csky_a, timing: bool):
+    """checktentagg over the ranks: csky3d80 f32 with the quality phase's
+    configuration (``QUALITY_EXPECT["csky_check"]``) on the union route
+    and poisson1000 f32 with ``check_tentagg`` (held to the one-process
+    run on the card), each through ``rank_cell`` with its setup watched
+    by ``CheckedPasses``.  Returns each cell's record, its whole labels,
+    and rank 0's kept launches timed."""
+    import numpy as np
+    import torch
+    from multigridsolver_tpu_torch.utils.config import (BENCH_HIERARCHY,
+                                                        bench_config,
+                                                        csky_config)
+    cells, labels, recs = {}, {}, {}
+    dev = mesh.device
+    for cell, a_, b_, ell_fn, cfg in (
+            ("csky_check", csky_a,
+             np.random.RandomState(0).rand(csky_a.nrows),
+             lambda: csky_a.to_ell(dtype=torch.float32, device=dev,
+                                   with_transpose=True),
+             checked_config(csky_config())),
+            ("poisson_check", a, b,
+             lambda: a.to_ell(dtype=torch.float32, device=dev),
+             checked_config(bench_config()))):
+        t0 = time.perf_counter()
+        watch = CheckedPasses(mesh.comm)
+        doc, setup, whole, _ = rank_cell(mesh, a_, b_, ell_fn, cfg,
+                                         BENCH_HIERARCHY, 2, setup_ctx=watch)
+        doc.update(checks=verdict_log(setup), checked=checked_passes(setup),
+                   watch=watch.summary())
+        for name, rows in watch.record_first(mesh, cell, timing).items():
+            recs.setdefault(name, []).extend(rows)
+        labels[cell] = [l.cpu() for l in whole.level_labels]
+        doc["wall"] = time.perf_counter() - t0
+        cells[cell] = doc
+    return cells, labels, recs
+
+
 def multicard_rank(out_dir: str, backend: str, device: str,
                    spr: str) -> int:
     """One rank of the multicard phase (this script with
@@ -2253,10 +2649,17 @@ def multicard_rank(out_dir: str, backend: str, device: str,
     del ilu
     t_perm = time.perf_counter() - t0
     new_bytes.update(gathered_bytes)
+    # checktentagg over the ranks: csky3d80 and poisson1000, checked
+    t0 = time.perf_counter()
+    checked, checked_labels, checked_recs = checked_cells(mesh, a, b, csky_a,
+                                                          timing)
+    t_checked = time.perf_counter() - t0
     if timing:
         kernels["hyb_spmv_sharded"] += state_recs \
             + gathered_recs["hyb_spmv_sharded"]
         kernels["take"] = gathered_recs["take"]
+        for name, rows in checked_recs.items():
+            kernels.setdefault(name, []).extend(rows)
     doc = dict(rank=comm.rank, transport=comm.describe(), device=str(dev),
                device_name=torch.cuda.get_device_name(dev),
                levels=[m.nrows for m in whole.matrices],
@@ -2268,15 +2671,18 @@ def multicard_rank(out_dir: str, backend: str, device: str,
                           hierarchy=t_hier, shard_hierarchy=t_shard,
                           check_replicated=t_check, solve=t_solve),
                kinds=kinds, csky=csky, permuted=permuted,
-               new_route_bytes=new_bytes,
-               cell_walls=dict(kinds=t_kinds, csky=t_csky, permuted=t_perm))
+               new_route_bytes=new_bytes, **checked,
+               cell_walls=dict(kinds=t_kinds, csky=t_csky, permuted=t_perm,
+                               checked=t_checked))
     if comm.rank == 0:
         torch.save(dict(labels=[l.cpu() for l in whole.level_labels],
                         x=torch.from_numpy(x),
                         csky_labels=[l.cpu()
                                      for l in csky_whole.level_labels],
                         permuted_labels=[l.cpu() for l
-                                         in perm_whole.level_labels]),
+                                         in perm_whole.level_labels],
+                        **{f"{cell}_labels": labs for cell, labs
+                           in checked_labels.items()}),
                    os.path.join(out_dir, "whole.pt"))
     with open(os.path.join(out_dir, f"rank{comm.rank}.json"), "w") as f:
         json.dump(doc, f)
@@ -3026,14 +3432,13 @@ def quality_csky_check(device, csky) -> dict:
     from multigridsolver_tpu_torch.solve.api import (solve_hierarchy,
                                                      solve_refined)
     from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
-    from multigridsolver_tpu_torch.utils.config import (
-        BENCH_HIERARCHY, CSKY_AGGREGATION, CSKY_REFINE, AggregationConfig,
-        HierarchyConfig)
+    from multigridsolver_tpu_torch.utils.config import (BENCH_HIERARCHY,
+                                                        CSKY_REFINE,
+                                                        csky_config)
     want = QUALITY_EXPECT["csky_check"]
     tag = "quality csky3d80 check_tentagg"
     a, b = csky["a"], csky["b"]
-    cfg = HierarchyConfig(max_coarse_size=512, aggregation=AggregationConfig(
-        **CSKY_AGGREGATION, check_tentagg=True))
+    cfg = checked_config(csky_config())
     ell, t_ell = timed(lambda: a.to_ell(dtype=torch.float32, device=device,
                                         with_transpose=True))
     setup, t_setup = timed(lambda: build_amg_setup(ell, cfg))
@@ -3049,8 +3454,7 @@ def quality_csky_check(device, csky) -> dict:
               for l, m in zip(setup.level_labels, setup.matrices)]
     checks = [(lvl, p.checks) for lvl, r in enumerate(setup.rounds)
               for p in r.passes if p.checks]
-    verdicts = [(int(c["pairs"]), int(c["rejected"]))
-                for _, cs in checks for c in cs]
+    verdicts = verdict_log(setup)
     near = [[int(c["near_zero"]) for c in cs] for _, cs in checks]
     log(f"{tag}: levels {levels} slot widths "
         f"{[m.k for m in setup.matrices]}")
@@ -3759,7 +4163,8 @@ def main() -> int:
             csky = csky_run(device, refine=False)
             check_csky_run("csky3d80 float32 reference", csky)
             phase_multicard(phase_main_path(device, problem), {}, {}, csky,
-                            phase_permuted(device), ranks=ranks,
+                            phase_permuted(device),
+                            phase_checked_one(device, problem), ranks=ranks,
                             spr=max(4 // ranks, 1))
             log("chip_smoke: the multicard phase passed")
             return 0
@@ -3772,7 +4177,8 @@ def main() -> int:
         csky = phase_csky(device, kres)
         phase_csky_hyb(device, csky, kres)
         multicard = phase_multicard(unsharded, sharded_times, kres, csky,
-                                    phase_permuted(device))
+                                    phase_permuted(device),
+                                    phase_checked_one(device, problem))
         smoothers = phase_smoothers(device, unsharded, csky, kres)
         quality = phase_quality(device, unsharded, csky, kres)
         cli = phase_cli(device)

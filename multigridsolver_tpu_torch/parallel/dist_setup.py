@@ -82,22 +82,29 @@ def build_amg_setup_sharded(a: ELL, cfg: HierarchyConfig,
 
     Over ranks ``a`` is the whole operator on every rank; the finest
     level's operator and labels in the result are this rank's rows (every
-    other level is whole).  The mutual matching's first pass is what runs
-    over ranks: the greedy matching, checktentagg and the smoothed
-    prolongation read the whole finest level and are refused there.  A
-    halo wider than a shard over ranks makes every gather of the finest
+    other level is whole).  The mutual matching runs over ranks, with
+    checktentagg too: its checked passes test the merges in the round's
+    input, the finest level's rows on each rank, summing the merges whose
+    members lie on several ranks (``setup/tentagg.py``).  Two options
+    are refused there: the greedy matching copies the whole finest
+    level (its CSR and exclusions) to the host, which no rank holds, and
+    ``smooth_p``'s SpGEMM reads host sizes of the finest product, which
+    the JAX package's own run across processes has not shown to work.
+    A halo wider than a shard over ranks makes every gather of the finest
     level read the whole field, all-gathered once per gather (K2 on the
     gathered vector), and every host read stays an all-reduced scalar, so
     that all ranks branch alike."""
     if mesh.over_ranks:
         agg = cfg.aggregation
-        refused = [name for name, on in (
-            ("the greedy matching", agg.matching == "greedy"),
-            ("check_tentagg", agg.check_tentagg),
-            ("smooth_p", cfg.smooth_p is not None)) if on]
+        refused = [why for why, on in (
+            ("the greedy matching (it reads the whole finest level on the "
+             "host: its CSR and exclusions)", agg.matching == "greedy"),
+            ("smooth_p (its SpGEMM reads host sizes of the finest product; "
+             "no run across processes has shown that path)",
+             cfg.smooth_p is not None)) if on]
         if refused:
             raise NotImplementedError(
-                f"the setup over ranks does not take {', '.join(refused)}")
+                f"the setup over ranks does not take {'; '.join(refused)}")
     a_sh = shard_ell_halo(a, mesh)
     if a_sh is None and mesh.over_ranks:
         a_sh = local_ell(on_device(repad_ell(a, mesh.ndev * ROW_BLOCK),

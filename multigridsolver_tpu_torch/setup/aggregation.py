@@ -213,7 +213,8 @@ def pairwise_aggregate(a: ELL, cfg: AggregationConfig,
         with timer.phase(f"aggregation.pass{s}"):
             if greedy:
                 paired, pass_labels, nc = _greedy_pass(ac, False, cfg)
-            elif cfg.check_tentagg and km <= 8 and a.npad % 1024 == 0:
+            elif (cfg.check_tentagg and km <= 8
+                  and a.global_npad % 1024 == 0):
                 paired, pass_labels, nc, checks = match_pass_checked(
                     ac, a, st.si, cum_labels, st.zerors, cfg, km)
             else:

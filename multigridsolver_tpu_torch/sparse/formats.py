@@ -247,6 +247,15 @@ class ELL:
         mesh, npr, _ = self.shard
         return mesh.first_shard * npr
 
+    @property
+    def global_npad(self) -> int:
+        """The padded row count of the whole level: :attr:`npad` but on a
+        rank's rows of a mesh over ranks, the same on every rank."""
+        if self.shard is None:
+            return self.npad
+        mesh, npr, _ = self.shard
+        return mesh.ndev * npr
+
     def row_ids(self) -> torch.Tensor:
         """(npad,) int32 — the global index of every stored row."""
         r0 = self.row0
