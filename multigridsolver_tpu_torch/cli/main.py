@@ -44,7 +44,7 @@ def cmd_setup(args):
     from ..setup.aggregation import pairwise_aggregate
     from ..setup.prolongation import p_csr_from_labels
     from ..utils.config import AggregationConfig
-    from ..utils.timing import PhaseTimer, print_info
+    from ..utils.timing import PhaseTimer, print_info, tracing
 
     a = read_mtx(_matrix_path(args, args.matrix))
     print_info("matrix", f"{a.nrows}x{a.ncols}, nnz={a.nnz}")
@@ -56,8 +56,8 @@ def cmd_setup(args):
                             matching=args.matching,
                             check_tentagg=args.check_tentagg)
     timer = PhaseTimer(device=args.torch_device)
-    with timer.phase("setup.total"):
-        res = pairwise_aggregate(ell, cfg, timer=timer)
+    with tracing(timer), timer.phase("setup.total"):
+        res = pairwise_aggregate(ell, cfg)
     timer.report()
     for i, p in enumerate(res.passes):
         print_info(f"AGMG round {i+1} completed, matrix size", p.nc)
@@ -88,7 +88,7 @@ def cmd_solve(args):
     """Returns (hierarchy, solve result)."""
     from ..io import read_mtx
     from ..solve.api import solve_hierarchy, two_level_from_p
-    from ..utils.timing import PhaseTimer, print_info
+    from ..utils.timing import PhaseTimer, print_info, tracing
 
     a = read_mtx(_matrix_path(args, args.matrix))
     rng = np.random.RandomState(args.seed)
@@ -97,37 +97,38 @@ def cmd_solve(args):
     device = args.torch_device
     timer = PhaseTimer(device=device)
     combo = "additive" if args.additive else "multiplicative"
-    if args.multilevel:
-        from ..setup.aggregation import build_amg_setup
-        from ..solve.hierarchy import build_hierarchy
-        from ..utils.config import AggregationConfig, HierarchyConfig
-        ell = a.to_ell(dtype=dtype, device=device)
-        cfg = HierarchyConfig(
-            max_coarse_size=args.max_coarse,
-            aggregation=AggregationConfig(ktg=args.ktg, npass=args.npass,
-                                          tou=args.tou,
-                                          check_tentagg=args.check_tentagg),
-            smooth_p=args.smooth_p)
-        with timer.phase("setup"):
-            setup = build_amg_setup(ell, cfg)
-        print_info("levels", [m.nrows for m in setup.matrices])
-        with timer.phase("hierarchy"):
-            hier = build_hierarchy(setup.matrices[0], setup.level_labels,
-                                   setup.matrices[1:],
-                                   smoother_kind=args.smoother,
-                                   cycle="kcycle", pre_smooth=1,
-                                   post_smooth=1, combination=combo,
-                                   p_ops=setup.p_ops, pt_ops=setup.pt_ops)
-    else:
-        p = read_mtx(_matrix_path(args,
-                                  f"{args.matrix}promatrix_{args.device}"))
-        with timer.phase("hierarchy"):
-            hier = two_level_from_p(a, p, smoother_kind=args.smoother,
-                                    dtype=dtype, device=device,
-                                    combination=combo)
-    with timer.phase("solve"):
-        res = solve_hierarchy(hier, b, method=args.method, tol=args.tol,
-                              maxiter=args.maxiter)
+    # the program's spans and host reads land in the same report
+    with tracing(timer):
+        if args.multilevel:
+            from ..setup.aggregation import build_amg_setup
+            from ..solve.hierarchy import build_hierarchy
+            from ..utils.config import AggregationConfig, HierarchyConfig
+            ell = a.to_ell(dtype=dtype, device=device)
+            agg = AggregationConfig(ktg=args.ktg, npass=args.npass,
+                                    tou=args.tou,
+                                    check_tentagg=args.check_tentagg)
+            cfg = HierarchyConfig(max_coarse_size=args.max_coarse,
+                                  aggregation=agg, smooth_p=args.smooth_p)
+            with timer.phase("setup"):
+                setup = build_amg_setup(ell, cfg)
+            print_info("levels", [m.nrows for m in setup.matrices])
+            with timer.phase("hierarchy"):
+                hier = build_hierarchy(setup.matrices[0], setup.level_labels,
+                                       setup.matrices[1:],
+                                       smoother_kind=args.smoother,
+                                       cycle="kcycle", pre_smooth=1,
+                                       post_smooth=1, combination=combo,
+                                       p_ops=setup.p_ops, pt_ops=setup.pt_ops)
+        else:
+            p = read_mtx(_matrix_path(args,
+                                      f"{args.matrix}promatrix_{args.device}"))
+            with timer.phase("hierarchy"):
+                hier = two_level_from_p(a, p, smoother_kind=args.smoother,
+                                        dtype=dtype, device=device,
+                                        combination=combo)
+        with timer.phase("solve"):
+            res = solve_hierarchy(hier, b, method=args.method, tol=args.tol,
+                                  maxiter=args.maxiter)
     timer.report()
     if int(res.status) == 0:
         print_info("Tolerance", float(res.relres))

@@ -30,7 +30,7 @@ import torch
 from ..sparse import ops as ell_ops
 from ..sparse.formats import ELL
 from ..utils.config import AggregationConfig, HierarchyConfig
-from ..utils.timing import PhaseTimer
+from ..utils import timing
 from .galerkin import galerkin_ell, galerkin_pair_ell
 from .matching import labels_from_pairs, mutual_match
 from .prolongation import compose_labels
@@ -117,9 +117,9 @@ def _greedy_pass(a: ELL, first_pass: bool, cfg: AggregationConfig):
     st = compute_strength(dataclasses.replace(a, vals=a.vals.double()),
                           cfg.ktg, first_pass, checkdd=cfg.checkdd,
                           trspos=cfg.trspos, fracnegrcsum=cfg.fracnegrcsum)
-    excluded = st.excluded[:n].cpu().numpy()
-    si = st.si[:n].cpu().numpy()
-    diag = st.diag[:n].cpu().numpy()
+    excluded = timing.read(st.excluded[:n], array=True)
+    si = timing.read(st.si[:n], array=True)
+    diag = timing.read(st.diag[:n], array=True)
     if first_pass:
         order = cmk_order_native(csr, genuine=cfg.cmk_mode == "genuine")
     else:
@@ -175,20 +175,18 @@ def match_pass_checked(mat: ELL, a0: ELL, si0: torch.Tensor,
 
 
 def pairwise_aggregate(a: ELL, cfg: AggregationConfig,
-                       nnz0: int | None = None,
-                       timer: PhaseTimer | None = None) -> AggregationResult:
+                       nnz0: int | None = None) -> AggregationResult:
     """One setup round: ``cfg.npass`` pairwise passes over ``a`` (one more
     when skipass fired).  ``nnz0``: the host-known nnz of ``a`` (read from
-    the device if None); ``timer`` times each pass as
-    ``aggregation.pass<s>``.  The greedy matching takes neither
-    checktentagg nor skipass (as in the JAX package)."""
+    the device if None).  Each pass is a span ``aggregation.pass<s>`` of
+    the installed tracer (``utils/timing``).  The greedy matching takes
+    neither checktentagg nor skipass (as in the JAX package)."""
     _check_supported(cfg)
-    timer = timer or PhaseTimer(enabled=False)
     greedy = cfg.matching == "greedy"
     if nnz0 is None:
-        nnz0 = int(ell_ops.all_sum(a, a.rownnz.sum()))
+        nnz0 = timing.read(ell_ops.all_sum(a, a.rownnz.sum()))
 
-    with timer.phase("aggregation.pass1"):
+    with timing.span("aggregation.pass1"):
         if greedy:
             paired, labels, nc = _greedy_pass(a, True, cfg)
         else:
@@ -210,7 +208,7 @@ def pairwise_aggregate(a: ELL, cfg: AggregationConfig,
             break
         km = 2 ** (s - 1)
         checks = None
-        with timer.phase(f"aggregation.pass{s}"):
+        with timing.span(f"aggregation.pass{s}"):
             if greedy:
                 paired, pass_labels, nc = _greedy_pass(ac, False, cfg)
             elif (cfg.check_tentagg and km <= 8

@@ -22,6 +22,7 @@ import torch
 
 from ..sparse import ops as ell_ops
 from ..sparse.formats import ELL
+from ..utils import timing
 
 
 def pair_members(paired: torch.Tensor, labels: torch.Tensor, nc: int):
@@ -157,7 +158,7 @@ def _galerkin_pair_arrays_ranks(a: ELL, paired: torch.Tensor,
     active = labels >= 0
     lead = torch.minimum(nodes, torch.where(paired >= 0, paired, nodes))
     is_leader = active & (lead == nodes)
-    counts = mesh.rank_values(is_leader.sum()).tolist()
+    counts = timing.read(mesh.rank_values(is_leader.sum()))
     first, width = sum(counts[:mesh.rank]), max(counts)
     dump = torch.full((width + 1,), -1, dtype=torch.int32, device=dev)
     dump.scatter_(0, torch.where(is_leader, labels - first, width).long(),
@@ -205,7 +206,7 @@ def galerkin_pair_ell(a: ELL, paired: torch.Tensor, labels: torch.Tensor,
     nc_pad = max(((nc_true + row_pad - 1) // row_pad) * row_pad, row_pad)
     cols, vals, rownnz, info, vals_t = galerkin_pair_arrays(a, paired,
                                                             labels, nc_pad)
-    nnz_c, max_deg = (int(v) for v in info.tolist())
+    nnz_c, max_deg = timing.read(info)
     kc_eff = max(max_deg, 1)
     ell = ELL(cols=cols[:kc_eff].contiguous(),
               vals=vals[:kc_eff].contiguous(),
@@ -261,10 +262,10 @@ def galerkin_ell_arrays(a: ELL, labels: torch.Tensor, nc: int):
     run_valid = run_len > 0
     rows_c = torch.where(run_valid, li[run_start], 0)
     cols_c = torch.where(run_valid, lj[run_start], 0)
-    rownnz = torch.bincount(torch.where(run_valid, rows_c, nc),
-                            minlength=nc + 1)[:nc]
-    nnz_c, max_deg, longest = torch.stack(
-        [newrun.sum(), rownnz.max(), run_len.max()]).tolist()
+    rownnz = ell_ops.bin_counts(torch.where(run_valid, rows_c, nc),
+                                nc + 1)[:nc]
+    nnz_c, max_deg, longest = timing.read(torch.stack(
+        [newrun.sum(), rownnz.max(), run_len.max()]))
     kc = max(max_deg, 1)
     sums = torch.zeros((m,), dtype=v.dtype, device=dev)
     for p in range(longest):

@@ -27,6 +27,7 @@ import torch
 
 from ..sparse import ops
 from ..sparse.formats import ELL
+from ..utils import timing
 from .strength import StrengthData
 
 _M32 = 0xFFFFFFFF
@@ -126,7 +127,7 @@ def labels_from_pairs(paired: torch.Tensor, excluded: torch.Tensor,
     if mesh is not None:
         counts = mesh.rank_values(leader.sum())
         first = counts[:mesh.rank].sum()
-        nc = int(counts.sum())
+        nc = timing.read(counts.sum())
     agg_of_leader = (torch.cumsum(leader.to(torch.int32), 0) - 1 + first) \
         .to(torch.int32)
     # a follower takes its partner's (the leader's) aggregate id
@@ -134,7 +135,7 @@ def labels_from_pairs(paired: torch.Tensor, excluded: torch.Tensor,
                                        idx=paired.clamp_min(0))
     labels = torch.where(leader, agg_of_leader, agg_of_partner)
     labels = torch.where(active, labels, -1).to(torch.int32)
-    return labels, nc if mesh is not None else int(leader.sum())
+    return labels, nc if mesh is not None else timing.read(leader.sum())
 
 
 def greedy_match_host(a_csr, ktg: float, first_pass_excluded: np.ndarray,

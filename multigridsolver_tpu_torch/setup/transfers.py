@@ -17,7 +17,9 @@ from dataclasses import dataclass
 import torch
 
 from ..ops import gather
+from ..sparse import ops
 from ..sparse.formats import ELL, _round_up
+from ..utils import timing
 
 T = 1024   # row padding of every operator
 
@@ -45,8 +47,8 @@ def _members_ell(labels: torch.Tensor, nc_t: int, dtype: torch.dtype):
     dev = labels.device
     valid = labels >= 0
     lab = torch.where(valid, labels, nc_t).long()
-    counts = torch.bincount(lab, minlength=nc_t + 1)[:nc_t]
-    km = max(int(counts.max()) if nc_t else 0, 1)
+    counts = ops.bin_counts(lab, nc_t + 1)[:nc_t]
+    km = max(timing.read(counts.max()) if nc_t else 0, 1)
     # members grouped by aggregate, ascending fine index inside a group
     order = torch.sort(lab, stable=True).indices
     lab_s = lab[order]

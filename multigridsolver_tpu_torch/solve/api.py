@@ -10,6 +10,7 @@ import torch
 
 from ..setup.galerkin import galerkin_ell
 from ..setup.prolongation import labels_from_p_csr
+from ..utils import timing
 from . import krylov
 from .hierarchy import Hierarchy, build_hierarchy
 
@@ -91,28 +92,35 @@ def solve_refined(hier: Hierarchy, a_host, b, tol: float = 1e-8,
     ``a_host`` (a host :class:`~..sparse.formats.CSR`), each correction
     A·dx = r is one :func:`solve_hierarchy` on the hierarchy's device to
     ``inner_tol``, and x is accumulated in f64 on the host.  A hierarchy
-    sharded over ranks is refused.
+    sharded over ranks is refused.  Spans (``utils/timing``):
+    ``refine.residual`` the host residual, ``refine.update`` x's copy
+    back and its accumulation.
 
     Returns (x, relres, total_inner_iterations, outer_sweeps)."""
     if hier.mesh is not None:
         raise NotImplementedError("solve_refined takes a hierarchy in one "
                                   "process, not one sharded over ranks")
-    a_sp = a_host.to_scipy()
-    b = np.asarray(b, dtype=np.float64)
-    normb = np.linalg.norm(b)
-    x = np.zeros_like(b)
+    with timing.span("refine.residual"):
+        a_sp = a_host.to_scipy()
+        b = np.asarray(b, dtype=np.float64)
+        normb = np.linalg.norm(b)
+        x = np.zeros_like(b)
     total_inner = 0
     for outer in range(1, max_outer + 1):
-        r = b - a_sp @ x
-        relres = np.linalg.norm(r) / normb
+        with timing.span("refine.residual"):
+            r = b - a_sp @ x
+            relres = np.linalg.norm(r) / normb
         if relres < tol:
             return x, relres, total_inner, outer - 1
         res = solve_hierarchy(hier, r, method=method, tol=inner_tol,
                               maxiter=maxiter)
         total_inner += int(res.iterations)
-        x = x + res.x.double().cpu().numpy()
-    r = b - a_sp @ x
-    return x, np.linalg.norm(r) / normb, total_inner, max_outer
+        with timing.span("refine.update"):
+            x = x + timing.read(res.x.double(), array=True)
+    with timing.span("refine.residual"):
+        r = b - a_sp @ x
+        relres = np.linalg.norm(r) / normb
+    return x, relres, total_inner, max_outer
 
 
 def solve(a, b, config=None, device: torch.device | str = "cuda"):

@@ -23,6 +23,7 @@ from ..setup import transfers as tf
 from ..sparse import hybrid as hyb
 from ..sparse import ops
 from ..sparse.formats import ELL
+from ..utils import timing
 from .smoothers import Smoother, make_smoother
 
 
@@ -56,13 +57,14 @@ class CoarseSolve:
     m: int
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        xm = torch.linalg.lu_solve(self.lu, self.piv,
-                                   b[: self.m, None])[:, 0]
-        if b.shape[0] == self.m:
-            return xm
-        out = torch.zeros_like(b)
-        out[: self.m] = xm
-        return out
+        with timing.span("coarse_solve"):
+            xm = torch.linalg.lu_solve(self.lu, self.piv,
+                                       b[: self.m, None])[:, 0]
+            if b.shape[0] == self.m:
+                return xm
+            out = torch.zeros_like(b)
+            out[: self.m] = xm
+            return out
 
 
 def make_coarse_solve(a: ELL) -> CoarseSolve:
@@ -74,7 +76,12 @@ def make_coarse_solve(a: ELL) -> CoarseSolve:
     # identity on padding (and on empty rows, e.g. excluded G0 rows)
     empty = (full == 0.0).all(1)
     full = full + torch.diag(empty.to(full.dtype))
-    lu, piv = torch.linalg.lu_factor(full)
+    lu, piv, info = torch.linalg.lu_factor_ex(full)
+    info = timing.read(info)
+    if info:
+        raise torch.linalg.LinAlgError(
+            f"the coarsest operator is singular (U[{info - 1}, {info - 1}] "
+            f"is zero)")
     return CoarseSolve(a=a, lu=lu, piv=piv, m=m)
 
 
@@ -106,7 +113,8 @@ class Hierarchy:
 
     def precondition(self, b: torch.Tensor) -> torch.Tensor:
         """One multigrid cycle as M⁻¹ b (zero initial guess)."""
-        return _cycle(self, 0, b)
+        with timing.span("precondition"):
+            return _cycle(self, 0, b)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         if self.levels:
@@ -136,6 +144,12 @@ def _coarse_correct(level: Level, hier: Hierarchy, idx: int,
 def _cycle(hier: Hierarchy, idx: int, b: torch.Tensor) -> torch.Tensor:
     if idx == len(hier.levels):
         return hier.coarse.solve(b)
+    with timing.span("level", idx):
+        return _level_cycle(hier, idx, b)
+
+
+def _level_cycle(hier: Hierarchy, idx: int,
+                 b: torch.Tensor) -> torch.Tensor:
     level = hier.levels[idx]
     a = level.a
     if hier.combination == "additive":

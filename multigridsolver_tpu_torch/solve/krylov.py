@@ -9,7 +9,9 @@ the outer method AGMG pairs with K-cycles (whose inner FCG makes the
 preconditioner vary).  GMRES(m) reduces its Hessenberg matrix by Givens
 rotations, which give the residual at every Arnoldi step.
 
-Each iteration (for GMRES each Arnoldi step) reads the device once.
+Each iteration (for GMRES each Arnoldi step) reads the device once,
+through ``utils/timing.read`` (a ``krylov.read`` span when a tracer is
+installed), and so does the first residual.
 On a row mesh over ranks every dot product and norm is a local one
 all-reduced: the caller passes the mesh's sum over ranks as ``allsum``
 (the identity when it is None, where norms are ``vector_norm``), and
@@ -26,6 +28,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import scipy.linalg
 import torch
+
+from ..utils import timing
 
 
 class SolveResult(NamedTuple):
@@ -48,6 +52,12 @@ def _reductions(allsum: Callable | None):
             lambda v: torch.sqrt(allsum(torch.dot(v, v))))
 
 
+def _read(t: torch.Tensor):
+    """One device read of the loop (``timing.read``, span
+    ``krylov.read``)."""
+    return timing.read(t, "krylov.read")
+
+
 def _nz(x: torch.Tensor) -> torch.Tensor:
     """Guard exact-zero denominators (breakdowns are caught separately)."""
     tiny = 1e-300 if x.dtype == torch.float64 else 1e-30
@@ -67,7 +77,7 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
     normb = torch.where(normb == 0.0, 1.0, normb)
     r = b - matvec(x)
     rtilde = r
-    resid = float(norm(r) / normb)
+    resid = _read(norm(r) / normb)
     if resid <= tol:
         return SolveResult(x=x, iterations=0, relres=resid, status=0)
     p = v = None
@@ -89,10 +99,10 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
         omega_new = dot(t, s) / _nz(dot(t, t))
         r_new = s - omega_new * t
         resid_new = norm(r_new) / normb
-        flags = torch.stack([
+        flags = _read(torch.stack([
             (rho_1 == 0.0).to(resid_s.dtype), resid_s, resid_new,
             (omega_new == 0.0).to(resid_s.dtype),
-            norm(r) / normb]).tolist()
+            norm(r) / normb]))
         rho_zero, rs, rn, om_zero, resid_r = flags
         if rho_zero:
             return SolveResult(x=x, iterations=i + 1, relres=resid_r,
@@ -125,7 +135,7 @@ def cg(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
     z = precond(r)
     p = z
     rz = dot(r, z)
-    resid = float(norm(r) / normb)
+    resid = _read(norm(r) / normb)
     i = 0
     while resid >= tol and i < maxiter:
         ap = matvec(p)
@@ -137,7 +147,7 @@ def cg(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
         p = z + (rz_new / _nz(rz)) * p
         rz = rz_new
         i += 1
-        resid = float(norm(r) / normb)
+        resid = _read(norm(r) / normb)
     return SolveResult(x=x, iterations=i, relres=resid,
                        status=0 if resid < tol else 1)
 
@@ -162,7 +172,7 @@ def fcg(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
     hap = torch.zeros_like(hp)
     hden = b.new_ones((truncate,))
     hok = torch.zeros((truncate,), dtype=torch.bool, device=b.device)
-    resid = float(norm(r) / normb)
+    resid = _read(norm(r) / normb)
     i = 0
     while resid >= tol and i < maxiter:
         z = precond(r)
@@ -179,7 +189,7 @@ def fcg(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
         hden = torch.cat([_nz(den)[None], hden[:-1]])
         hok = torch.cat([hok.new_ones((1,)), hok[:-1]])
         i += 1
-        resid = float(norm(r) / normb)
+        resid = _read(norm(r) / normb)
     return SolveResult(x=x, iterations=i, relres=resid,
                        status=0 if resid < tol else 1)
 
@@ -207,7 +217,7 @@ def gmres(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
     normb_t = norm(b)
     normb_t = torch.where(normb_t == 0.0, 1.0, normb_t)
     r = b - matvec(x)
-    normb, beta0 = (dt(v) for v in torch.stack([normb_t, norm(r)]).tolist())
+    normb, beta0 = (dt(v) for v in _read(torch.stack([normb_t, norm(r)])))
     resid = dt(beta0 / normb)
     iters = 0
     while resid >= tol and iters < maxiter:
@@ -233,7 +243,7 @@ def gmres(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
             zs.append(z)
             read = torch.stack(hs + [hjj] + ([beta] if j == 0 else []))
             hcol = np.zeros(m + 1, dtype=dt)
-            vals = np.asarray(read.tolist(), dtype=dt)
+            vals = np.asarray(_read(read), dtype=dt)
             hcol[: j + 2] = vals[: j + 2]
             if j == 0:
                 g[0] = vals[-1]

@@ -19,6 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import timing
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -121,33 +123,51 @@ class CSR:
         attach the aligned transposed-value field ``vals_t``, so the
         nonsymmetric setup reads aⱼᵢ as a field instead of matching the
         transposed pattern.  A structurally symmetric input keeps its
-        pattern."""
+        pattern.
+
+        Spans (``utils/timing``): ``pack.union`` the union and transpose
+        on the host, ``pack.scatter`` the fill of the slots,
+        ``pack.copy`` the copy to ``device``."""
         if with_transpose:
             return self._union_ell(k, row_pad, dtype, device)
-        n, m = self.shape
-        counts = self.rownnz()
-        kmax = int(counts.max()) if n > 0 and self.nnz > 0 else 1
-        if k is None:
-            k = max(kmax, 1)
-        if kmax > k:
-            raise ValueError(f"row degree {kmax} exceeds requested width {k}")
-        n_pad = max(_round_up(n, row_pad), row_pad)
-        cols = np.zeros((k, n_pad), dtype=np.int32)
-        vals = np.zeros((k, n_pad), dtype=np.float64)
-        # slot index of each nnz within its row
-        slot = np.arange(self.nnz, dtype=np.int64) - np.repeat(
-            self.indptr[:-1], counts)
-        rows = np.repeat(np.arange(n, dtype=np.int64), counts)
-        cols[slot, rows] = self.indices
-        vals[slot, rows] = self.data
-        rownnz = np.zeros((n_pad,), dtype=np.int32)
-        rownnz[:n] = counts
-        return ELL(cols=torch.from_numpy(cols).to(device),
-                   vals=torch.from_numpy(vals).to(device=device, dtype=dtype),
-                   rownnz=torch.from_numpy(rownnz).to(device),
-                   nrows=n, ncols=m)
+        with timing.span("pack.scatter"):
+            n, m = self.shape
+            counts = self.rownnz()
+            kmax = int(counts.max()) if n > 0 and self.nnz > 0 else 1
+            if k is None:
+                k = max(kmax, 1)
+            if kmax > k:
+                raise ValueError(f"row degree {kmax} exceeds requested "
+                                 f"width {k}")
+            n_pad = max(_round_up(n, row_pad), row_pad)
+            cols = np.zeros((k, n_pad), dtype=np.int32)
+            vals = np.zeros((k, n_pad), dtype=np.float64)
+            # slot index of each nnz within its row
+            slot = np.arange(self.nnz, dtype=np.int64) - np.repeat(
+                self.indptr[:-1], counts)
+            rows = np.repeat(np.arange(n, dtype=np.int64), counts)
+            cols[slot, rows] = self.indices
+            vals[slot, rows] = self.data
+            rownnz = np.zeros((n_pad,), dtype=np.int32)
+            rownnz[:n] = counts
+        with timing.span("pack.copy"):
+            return ELL(cols=torch.from_numpy(cols).to(device),
+                       vals=torch.from_numpy(vals).to(device=device,
+                                                      dtype=dtype),
+                       rownnz=torch.from_numpy(rownnz).to(device),
+                       nrows=n, ncols=m)
 
     def _union_ell(self, k, row_pad, dtype, device) -> "ELL":
+        with timing.span("pack.union"):
+            fwd, bwd = self._union_csr()
+        fell = fwd.to_ell(k=k, row_pad=row_pad, dtype=dtype, device=device)
+        tell = bwd.to_ell(k=fell.k, row_pad=row_pad, dtype=dtype,
+                          device=device)
+        return dataclasses.replace(fell, vals_t=tell.vals)
+
+    def _union_csr(self) -> tuple["CSR", "CSR"]:
+        """A and the transposed-value field Aᵀ on the union of the stored
+        patterns of A and Aᵀ (host)."""
         import scipy.sparse as sps
         a_sp = self.to_scipy().tocsr()
         a_sp.sort_indices()
@@ -178,11 +198,7 @@ class CSR:
         fwd = sps.csr_matrix((fill(a_sp), u.indices, u.indptr), shape=u.shape)
         bwd = sps.csr_matrix((fill(at_sp), u.indices, u.indptr),
                              shape=u.shape)
-        fell = CSR.from_scipy(fwd).to_ell(k=k, row_pad=row_pad, dtype=dtype,
-                                          device=device)
-        tell = CSR.from_scipy(bwd).to_ell(k=fell.k, row_pad=row_pad,
-                                          dtype=dtype, device=device)
-        return dataclasses.replace(fell, vals_t=tell.vals)
+        return CSR.from_scipy(fwd), CSR.from_scipy(bwd)
 
 
 @dataclass
@@ -272,9 +288,10 @@ class ELL:
 
     def to_csr(self) -> CSR:
         """Host-side conversion back to CSR (drops padding)."""
-        cols = self.cols.cpu().numpy()[:, : self.nrows]
-        vals = self.vals.cpu().double().numpy()[:, : self.nrows]
-        counts = self.rownnz.cpu().numpy()[: self.nrows].astype(np.int64)
+        cols = timing.read(self.cols[:, : self.nrows], array=True)
+        vals = timing.read(self.vals[:, : self.nrows].double(), array=True)
+        counts = timing.read(self.rownnz[: self.nrows],
+                             array=True).astype(np.int64)
         k = cols.shape[0]
         valid_t = (np.arange(k)[:, None] < counts[None, :]).T   # (n, K)
         rows = np.repeat(np.arange(self.nrows, dtype=np.int64), counts)

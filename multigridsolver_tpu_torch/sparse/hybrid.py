@@ -23,6 +23,7 @@ import torch
 
 from ..ops import gather
 from . import ops as ell_ops
+from ..utils import timing
 from .formats import ELL
 
 
@@ -82,8 +83,10 @@ def hybrid_from_ell(a: ELL, max_diags: int = 48,
     ``max(1, npad // 4096)``-th row, the split built on the device with
     masked reductions and one stable sort along the slot axis."""
     stride = max(1, a.npad // 4096)
-    sample_cols = a.cols[:, ::stride].cpu().numpy()
-    sample_nnz = a.rownnz[::stride].cpu().numpy()
+    # the sampled columns and the sample's row counts in one read
+    sample = timing.read(torch.cat([a.cols[:, ::stride],
+                                    a.rownnz[None, ::stride]]), array=True)
+    sample_cols, sample_nnz = sample[:-1], sample[-1]
     rows = np.arange(a.npad, dtype=np.int64)[::stride]
     offsets = _offsets_from_host_sample(sample_cols, sample_nnz, rows,
                                         a.nrows, a.npad, max_diags, min_fill)
@@ -104,7 +107,7 @@ def hybrid_from_ell(a: ELL, max_diags: int = 48,
     rcols = torch.gather(a.cols, 0, order)
     rvals = torch.gather(a.vals, 0, order)
     rnnz = keep.to(torch.int32).sum(0, dtype=torch.int32)
-    k_rest = int(rnnz.max()) if a.npad else 0
+    k_rest = timing.read(rnnz.max()) if a.npad else 0
     ell = None
     if k_rest > 0:
         sl = torch.arange(k_rest, dtype=torch.int32, device=a.device)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import gather
+from ..utils import timing
 from .formats import ELL
 
 
@@ -67,7 +68,17 @@ def all_any(a, t: torch.Tensor) -> bool:
     collective read over ranks)."""
     mesh = rank_mesh(a)
     t = t.any()
-    return bool(t if mesh is None else mesh.allreduce_max(t))
+    return bool(timing.read(t if mesh is None else mesh.allreduce_max(t)))
+
+
+def bin_counts(idx: torch.Tensor, length: int) -> torch.Tensor:
+    """``torch.bincount(idx, minlength=length)`` for ``idx`` in [0,
+    ``length``) (int64), without the read of ``idx.max()`` that
+    ``bincount`` makes on the card."""
+    idx = idx.long()
+    return torch.zeros((length,), dtype=torch.int64,
+                       device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
 
 
 def take_member_rows(members: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import ops
+from ..utils import timing
 from .formats import ELL, _round_up
 
 
@@ -110,9 +111,9 @@ def transpose_ell(a: ELL, kt: int | None = None) -> ELL:
     col = torch.where(mask, a.cols, npad_t).T.reshape(-1).long()
     row = a.row_iota().T.reshape(-1)
     val = a.vals.T.reshape(-1)
-    counts = torch.bincount(col, minlength=npad_t + 1)[:npad_t]
+    counts = ops.bin_counts(col, npad_t + 1)[:npad_t]
     if kt is None:
-        kt = int(counts.max())
+        kt = timing.read(counts.max())
     kt = max(int(kt), 1)
     col, order = torch.sort(col, stable=True)
     start = torch.cumsum(counts, 0) - counts

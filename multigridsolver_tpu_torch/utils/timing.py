@@ -1,11 +1,31 @@
-"""Phase timers and structured logging.
+"""The port's tracer, phase timers and structured logging.
 
-The reference's wall-clock ``TicToc`` timers and coloured ``printInfo``
-lines.  CUDA launches return before the card has finished, so a
-:class:`PhaseTimer` on a CUDA device ends every phase with
-``torch.cuda.synchronize(device)``: the wall clock then covers the work,
-not its enqueue.  The line format is the JAX package's, so the two
-command lines' logs differ only in their times.
+:class:`PhaseTimer` is the process's one tracer.  The command line uses
+it as the reference's wall-clock ``TicToc`` timers: CUDA launches return
+before the card has finished, so a phase (:meth:`PhaseTimer.phase`) on a
+CUDA device ends with ``torch.cuda.synchronize(device)`` and its wall
+clock covers the work, not its enqueue.  Installed with
+:func:`tracing`, it also receives what the program records where the
+work happens:
+
+* :func:`span` (``name``, optionally a level index): two stamps of the
+  host's clock, no synchronise, kept as ``(name, level, t0, t1)``;
+* :func:`count`: a named counter;
+* :func:`read`: the one way the program reads a card tensor on the host
+  (``.tolist()``, or a numpy array), which counts ``host_reads`` and
+  records a ``host_read`` span (or the span its caller names).
+
+With no tracer installed :func:`span` returns one shared no-op context
+manager and :func:`count` and :func:`read` do no more than their plain
+work: one global load and one comparison each, nothing allocated,
+nothing synchronised.
+
+Installed on a CUDA device, a tracer stamps the host's clock and at once
+launches a marker kernel (:data:`MARKER_KERNEL`): a device trace taken
+around the block is placed on the tracer's clock by its first such
+event, to within one launch's latency.  The line format is the JAX
+package's, so the two command lines' logs differ only in their times
+(and the tracer's own lines).
 """
 from __future__ import annotations
 
@@ -18,6 +38,12 @@ import torch
 _COLORS = {"info": "\033[32m", "time": "\033[36m", "warn": "\033[33m",
            "err": "\033[31m"}
 _RESET = "\033[0m"
+
+# spans in which the host waits on a device read (counted as host_reads)
+READ_SPANS = ("host_read", "krylov.read")
+# the name of the marker's kernel in a device trace: a fill of int16
+# words, which the program launches nowhere else
+MARKER_KERNEL = "FillFunctor<short>"
 
 
 def _tag(kind: str) -> str:
@@ -37,16 +63,63 @@ def print_warn(msg: str) -> None:
     print(f"{_tag('warn')} {msg}", file=sys.stderr)
 
 
-class PhaseTimer:
-    """Named accumulating wall-clock timers.  ``device``: where the timed
-    work runs; on a CUDA device each phase ends with a synchronize."""
+class _NoSpan:
+    """The span of a process with no tracer installed."""
 
-    def __init__(self, enabled: bool = True,
-                 device: torch.device | str | None = None):
-        self.enabled = enabled
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+_tracer: "PhaseTimer | None" = None
+
+
+class _Span:
+    __slots__ = ("tracer", "name", "level", "t0")
+
+    def __init__(self, tracer: "PhaseTimer", name: str, level):
+        self.tracer, self.name, self.level = tracer, name, level
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.tracer._record(self.name, self.level, self.t0,
+                            time.perf_counter())
+        return False
+
+
+def _key(name: str, level):
+    return name if level is None else (name, level)
+
+
+def _label(key) -> str:
+    return key if isinstance(key, str) else f"{key[0]} {key[1]}"
+
+
+class PhaseTimer:
+    """Named accumulating wall-clock timers, spans and counters.
+    ``device``: where the timed work runs; on a CUDA device each phase
+    ends with a synchronize, and :func:`tracing` launches its marker
+    there.  ``times``/``counts`` hold the total and number of each phase
+    and span, keyed by name (``(name, level)`` for a span with a level),
+    in the order they first ended; ``records`` every span as ``(name,
+    level, t0, t1)``; ``counters`` the counters; ``marker`` the host
+    stamp of the last marker launched (None off the card)."""
+
+    def __init__(self, device: torch.device | str | None = None):
         self.device = None if device is None else torch.device(device)
-        self.times: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
+        self.times: dict = {}
+        self.counts: dict = {}
+        self.records: list[tuple[str, int | None, float, float]] = []
+        self.counters: dict[str, int] = {}
+        self.marker: float | None = None
 
     def _sync(self) -> None:
         if self.device is not None and self.device.type == "cuda":
@@ -54,26 +127,127 @@ class PhaseTimer:
 
     @contextmanager
     def phase(self, name: str):
-        if not self.enabled:
-            yield
-            return
+        """A phase ``name``: its wall clock, ending in a synchronize on a
+        CUDA device."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            self.toc(name, t0)
+            self._sync()
+            self._add(name, time.perf_counter() - t0)
 
-    def tic(self) -> float:
-        return time.perf_counter()
+    def _add(self, key, dt: float) -> None:
+        self.times[key] = self.times.get(key, 0.0) + dt
+        self.counts[key] = self.counts.get(key, 0) + 1
 
-    def toc(self, name: str, t0: float) -> float:
-        self._sync()
-        dt = time.perf_counter() - t0
-        self.times[name] = self.times.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-        return dt
+    def _record(self, name: str, level, t0: float, t1: float) -> None:
+        self.records.append((name, level, t0, t1))
+        self._add(_key(name, level), t1 - t0)
+
+    def span(self, name: str, level: int | None = None) -> _Span:
+        """A span that stamps the host's clock on entry and exit."""
+        return _Span(self, name, level)
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def mark(self) -> None:
+        """Stamp the host's clock and launch the device marker at once,
+        one int16 word filled (nothing off the card).  Not the port's
+        empty kernel: ``torch.profiler`` kept that in a device trace only
+        1-2 times in 8 on the H100, a PyTorch fill every time."""
+        if self.device is not None and self.device.type == "cuda":
+            self.marker = time.perf_counter()
+            torch.full((1,), 1, dtype=torch.int16, device=self.device)
+
+    def spans(self, name: str) -> list[tuple[int | None, float, float]]:
+        """``(level, t0, t1)`` of every span ``name``."""
+        return [(lv, t0, t1) for n, lv, t0, t1 in self.records if n == name]
+
+    def self_times(self, names=("level", "coarse_solve")) -> dict:
+        """The self time of every span among ``names``, summed by key
+        (as ``times``): its time less that of the spans among ``names``
+        directly inside it."""
+        own: dict = {}
+        stack: list[list] = []      # [t1, key, t0, child time]
+
+        def close(entry):
+            t1, key, t0, child = entry
+            own[key] = own.get(key, 0.0) + (t1 - t0) - child
+
+        recs = sorted((r for r in self.records if r[0] in names),
+                      key=lambda r: (r[2], -r[3]))
+        for name, level, t0, t1 in recs:
+            while stack and stack[-1][0] <= t0:
+                close(stack.pop())
+            if stack:
+                stack[-1][3] += t1 - t0
+            stack.append([t1, _key(name, level), t0, 0.0])
+        while stack:
+            close(stack.pop())
+        return own
 
     def report(self) -> None:
-        for name, t in self.times.items():
-            label = f"{name} (x{self.counts[name]})"
-            print(f"{_tag('time')} {label:<42} : {t:.6f} s", file=sys.stderr)
+        """One ``[time]`` line a phase or span (reads apart), each level's
+        self time, then the reads' waits and the counters."""
+        for key, t in self.times.items():
+            if key not in READ_SPANS:
+                self._line("time", f"{_label(key)} (x{self.counts[key]})",
+                           f"{t:.6f} s")
+        own = self.self_times()
+        for key in sorted(k for k in own if k[0] == "level"):
+            self._line("time", f"{_label(key)} self", f"{own[key]:.6f} s")
+        for label in READ_SPANS:
+            if label in self.times:
+                self._line("read", f"{label} (x{self.counts[label]})",
+                           f"{self.times[label]:.6f} s")
+        for name, n in self.counters.items():
+            self._line("count", name, n)
+
+    @staticmethod
+    def _line(kind: str, label: str, value) -> None:
+        print(f"{_tag(kind)} {label:<42} : {value}", file=sys.stderr)
+
+
+@contextmanager
+def tracing(tracer: PhaseTimer):
+    """Install ``tracer`` as the process's tracer for the block (and
+    launch its device marker)."""
+    global _tracer
+    prev = _tracer
+    tracer.mark()
+    _tracer = tracer
+    try:
+        yield tracer
+    finally:
+        _tracer = prev
+
+
+def span(name: str, level: int | None = None):
+    """A span ``name`` (at ``level``) on the installed tracer; the
+    shared no-op context with none installed."""
+    tracer = _tracer
+    if tracer is None:
+        return NO_SPAN
+    return tracer.span(name, level)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the installed tracer's counter ``name``."""
+    tracer = _tracer
+    if tracer is not None:
+        tracer.count(name, n)
+
+
+def read(t: torch.Tensor, name: str = "host_read", array: bool = False):
+    """``t.tolist()`` (a Python number for a 0-d tensor), or with
+    ``array`` a numpy array: a card tensor read on the host.  With a
+    tracer installed the read is counted as ``host_reads`` and recorded
+    as a span ``name``."""
+    tracer = _tracer
+    if tracer is None:
+        return t.cpu().numpy() if array else t.tolist()
+    with tracer.span(name):
+        out = t.cpu().numpy() if array else t.tolist()
+    tracer.count("host_reads")
+    return out
