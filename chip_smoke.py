@@ -31,7 +31,9 @@ Phases, each printing a line:
    bitwise μ(i→j) == μ(j→i) check on every aggregated level, again in
    f32 for times without first-use costs, and in f64, each checked for
    status, relative residuals and iteration count, the f32 runs also for
-   their level sizes;
+   their level sizes; then one ``precondition`` on the first f32
+   hierarchy eager, capturing its CUDA graph and replaying it (CUDA
+   events, median of 20);
 5. hybrid SpMV: K1 with lanes (``hyb_spmv``) on every level of the f32
    and f64 hierarchies of step 4, bitwise against the route it replaced
    (the torch lane loop, then K1 without lanes) and against its plain
@@ -989,6 +991,7 @@ def phase_main_path(device, a) -> dict:
     # near 4e-3), far above 1e-5: hold the f32 run to 1e-5 above twice
     # that bound, and the f64 run to 1e-5 itself
     check_true_residual("float32", first["true_res"], first["floor"])
+    precondition_ms(first["hier"], device, "poisson1000 float32")
     # a second f32 run: times without first-use costs (library handles,
     # allocator growth)
     second = run(torch.float32, EXPECT_LEVELS)
@@ -1003,6 +1006,51 @@ def phase_main_path(device, a) -> dict:
     first["launches"] = counts
     first["f64"] = f64
     return first
+
+
+def precondition_ms(hier, device, tag: str, calls: int = 20) -> dict:
+    """One ``Hierarchy.precondition`` of each kind, in ms: the median over
+    ``calls`` of CUDA events around one call, each after a synchronise, so
+    that the reading covers the host's launches where the host paces the
+    card.  Eager and capture: the first and second calls on a fresh copy
+    of ``hier`` (``calls`` copies); replay: later calls.  Logged as one
+    line."""
+    import dataclasses
+
+    import torch
+    from multigridsolver_tpu_torch.utils import timing
+    v = torch.rand(hier.levels[0].a.npad, dtype=hier.levels[0].a.dtype,
+                   device=device, generator=torch.Generator(
+                       device=device).manual_seed(0))
+
+    def events(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        return start, end
+
+    pairs = {"eager": [], "capture": [], "replay": []}
+    tracer = timing.PhaseTimer(device=device)
+    with timing.tracing(tracer):
+        for _ in range(calls):
+            h = dataclasses.replace(hier)
+            pairs["eager"].append(events(lambda: h.precondition(v)))
+            pairs["capture"].append(events(lambda: h.precondition(v)))
+        for _ in range(calls):
+            pairs["replay"].append(events(lambda: h.precondition(v)))
+    torch.cuda.synchronize()
+    counts = {k: tracer.counters.get(f"kcycle.{k}", 0) for k in pairs}
+    check(counts == {k: calls for k in pairs},
+          f"precondition calls by kind {counts}, not {calls} of each")
+    ms = {k: statistics.median(s.elapsed_time(e) for s, e in p)
+          for k, p in pairs.items()}
+    log(f"precondition at {tag} (CUDA events, median of {calls}): eager "
+        f"{ms['eager']!r} ms, capture {ms['capture']!r} ms, replay "
+        f"{ms['replay']!r} ms")
+    return ms
 
 
 def log_shapes(shapes) -> None:
@@ -3224,8 +3272,12 @@ def csky_ilu0_factor_check(hier, setup) -> None:
 
 def precondition_kernels(hiers, device) -> dict:
     """Per configuration: the hand-written kernels one preconditioner call
-    launches (the launch counts), and the device kernels, busy time and
-    walls of one call under ``torch.profiler`` (``phase_profile``)."""
+    launches (the launch counts of the first, eager call on a copy of the
+    hierarchy: a replayed graph counts none), and the device kernels, busy
+    time and walls of one call under ``torch.profiler``
+    (``phase_profile``; a replay where the hierarchy has its graph)."""
+    import dataclasses
+
     import torch
     from multigridsolver_tpu_torch.ops import gather as g
     from multigridsolver_tpu_torch.utils.phase_profile import profile_call
@@ -3235,7 +3287,7 @@ def precondition_kernels(hiers, device) -> dict:
                        device=device, generator=torch.Generator(
                            device=device).manual_seed(0))
         g.reset_launch_counts()
-        hier.precondition(v)
+        dataclasses.replace(hier).precondition(v)
         hand = {k: c for k, c in g.launch_counts().items() if c}
         prof = profile_call(lambda: hier.precondition(v))
         out[tag] = dict(hand_kernels_per_precondition=hand,

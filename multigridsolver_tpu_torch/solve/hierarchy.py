@@ -12,10 +12,16 @@ the reference's own two-level preconditioner.
 Each level's operator is the DIA+ELL hybrid (solve-phase SpMV), its
 transfers the K1 arrays of ``setup/transfers.py``.  The coarsest level is
 a dense LU at tight padding (``torch.linalg.lu_factor``/``lu_solve``).
+
+On the card a hierarchy replays its cycle as one CUDA graph
+(:meth:`Hierarchy.precondition`): the cycle reads nothing back to the
+host, so its few thousand small launches can be captured once and
+replayed for every right-hand side.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import gc
+from dataclasses import dataclass, field
 
 import torch
 
@@ -107,13 +113,49 @@ class Hierarchy:
     kcycle_depth: int = 3
     combination: str = "multiplicative"
 
+    # the captured cycle of precondition; a copy (dataclasses.replace,
+    # shard_hierarchy) starts without one
+    _graph: "CycleGraph | None" = field(default=None, init=False,
+                                        repr=False, compare=False)
+
     @property
     def nlevels(self) -> int:
         return len(self.levels) + 1
 
     def precondition(self, b: torch.Tensor) -> torch.Tensor:
-        """One multigrid cycle as M⁻¹ b (zero initial guess)."""
+        """One multigrid cycle as M⁻¹ b (zero initial guess).
+
+        For ``b`` on a CUDA device the cycle becomes a CUDA graph: the
+        first such call runs eagerly (it warms lazy state: the kernels'
+        library, cuBLAS, the allocator), the second captures the cycle
+        for ``b``'s shape, dtype and device and replays it, and every
+        later call with that shape, dtype and device copies ``b`` into the
+        graph's input, replays, and returns a copy of its output (a new
+        tensor each call: BiCGStab keeps one result across the next
+        call).  Every other call runs eagerly: on the CPU, with another
+        shape, dtype or device, and on a hierarchy with a level bound to
+        a row mesh (``parallel.shard_hierarchy``), whose K-cycle
+        all-reduces over ranks.  The replay is the eager cycle's kernels
+        on the same operators, so its result is the same bits; the graph
+        holds the level tensors it was captured on, so a level is
+        changed on a copy (``dataclasses.replace``), never in place.
+        Counters ``kcycle.eager``, ``kcycle.capture`` and
+        ``kcycle.replay`` count the calls by kind; ``level`` and
+        ``coarse_solve`` spans appear only where the cycle's Python runs
+        (eager and capturing calls)."""
         with timing.span("precondition"):
+            graph = self._graph
+            if graph is not None and graph.takes(b):
+                if graph.graph is None:
+                    graph.capture(self, b)
+                    timing.count("kcycle.capture")
+                else:
+                    timing.count("kcycle.replay")
+                return graph.replay(b)
+            if graph is None and b.is_cuda and not _bound_to_mesh(self):
+                # the first call on the card runs eagerly and keys the graph
+                self._graph = CycleGraph(b)
+            timing.count("kcycle.eager")
             return _cycle(self, 0, b)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
@@ -128,6 +170,57 @@ class Hierarchy:
         mesh = getattr(self.levels[0].a, "mesh", None) if self.levels \
             else None
         return mesh if mesh is not None and mesh.over_ranks else None
+
+
+def _bound_to_mesh(hier: Hierarchy) -> bool:
+    """Whether a level's operator or transfers are bound to a row mesh
+    (``parallel.HaloOp``, ``ExchangeELL``, ``RankTransfer``)."""
+    return any(hasattr(level.a, "mesh") or hasattr(level.tplan, "mesh")
+               for level in hier.levels)
+
+
+class CycleGraph:
+    """A hierarchy's cycle as one CUDA graph for right-hand sides of one
+    shape, dtype and device: before :meth:`capture` only that key (the
+    first call ran eagerly), after it the graph, its static input ``b``
+    and its output ``x`` (which lies in the graph's private memory pool,
+    freed with the graph)."""
+
+    def __init__(self, b: torch.Tensor):
+        self.key = (b.shape, b.dtype, b.device)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.b = self.x = None
+
+    def takes(self, b: torch.Tensor) -> bool:
+        return (b.shape, b.dtype, b.device) == self.key
+
+    def capture(self, hier: Hierarchy, b: torch.Tensor) -> None:
+        """Capture ``_cycle(hier, 0, ·)`` on a static copy of ``b``.
+
+        Python's cyclic collector is held off during the capture: a
+        dropped hierarchy that sits in a reference cycle (one whose
+        ``precondition`` was replaced by a wrapper around its own bound
+        method, say) is freed whenever the collector runs, and its graph
+        freed in the middle of this capture invalidates the capture."""
+        static = b.clone()
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with timing.span("kcycle.capture"), \
+                    torch.cuda.device(b.device), torch.cuda.graph(graph):
+                x = _cycle(hier, 0, static)
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph, self.b, self.x = graph, static, x
+
+    def replay(self, b: torch.Tensor) -> torch.Tensor:
+        """The cycle on ``b``: a new tensor."""
+        with torch.cuda.device(b.device):
+            self.b.copy_(b)
+            self.graph.replay()
+            return self.x.clone()
 
 
 def _coarse_correct(level: Level, hier: Hierarchy, idx: int,

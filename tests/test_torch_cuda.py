@@ -6,6 +6,9 @@ imports no jax, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py
 """
+import dataclasses
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -17,11 +20,15 @@ from multigridsolver_tpu_torch.parallel import (RowMesh,
                                                 shard_ell_halo,
                                                 shard_hierarchy)
 from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup
-from multigridsolver_tpu_torch.solve.api import (solve_hierarchy,
+from multigridsolver_tpu_torch.solve import hierarchy as hierarchy_mod
+from multigridsolver_tpu_torch.solve import krylov
+from multigridsolver_tpu_torch.solve.api import (pad_vector,
+                                                 solve_hierarchy,
                                                  solve_refined)
-from multigridsolver_tpu_torch.solve.hierarchy import build_hierarchy
+from multigridsolver_tpu_torch.solve.hierarchy import _cycle, build_hierarchy
 from multigridsolver_tpu_torch.sparse import ops
 from multigridsolver_tpu_torch.sparse.hybrid import hybrid_from_ell
+from multigridsolver_tpu_torch.utils import timing
 from multigridsolver_tpu_torch.utils.config import (BENCH_HIERARCHY,
                                                     CSKY_REFINE,
                                                     bench_config,
@@ -671,3 +678,109 @@ def test_sharded_smoother_state_and_wide_halo_match_plain(device, dtype):
             assert res.status == 0 and res.relres < 1e-6
             its.append(res.iterations)
         assert abs(its[0] - its[1]) <= 1, (kind, its)
+
+
+def graph_case(case, device):
+    """The bench's K-cycle hierarchy (pre- and post-smoothing 1) in f32:
+    poisson2d(1000), or csky3d(20) packed with its transposed field."""
+    if case == "poisson1000":
+        ell, cfg = poisson2d(1000).to_ell(dtype=torch.float32,
+                                          device=device), bench_config()
+    else:
+        ell, cfg = csky3d(20).to_ell(dtype=torch.float32, device=device,
+                                     with_transpose=True), csky_config()
+    s = build_amg_setup(ell, cfg)
+    return build_hierarchy(s.matrices[0], s.level_labels, s.matrices[1:],
+                           **BENCH_HIERARCHY)
+
+
+def traced_calls(hier, bs):
+    """One precondition call per b under a tracer: the results and the
+    counters."""
+    tracer = timing.PhaseTimer(device=bs[0].device)
+    with timing.tracing(tracer):
+        out = [hier.precondition(b) for b in bs]
+    return out, tracer.counters
+
+
+@pytest.mark.parametrize("case", ["poisson1000", "csky3d20"])
+def test_cycle_graph_replays_the_eager_cycle(device, case):
+    """The first call runs eagerly, the second captures, the rest replay;
+    each of the three graph results is bitwise the eager cycle on its b,
+    and each is a tensor of its own."""
+    h = graph_case(case, device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    bs = [torch.rand(h.levels[0].a.npad, generator=gen, device=device)
+          for _ in range(4)]
+    out, counters = traced_calls(h, bs)
+    assert counters == {"kcycle.eager": 1, "kcycle.capture": 1,
+                        "kcycle.replay": len(bs) - 2}
+    for b, z in zip(bs, out):
+        assert torch.equal(z, _cycle(h, 0, b))
+    ptrs = {z.untyped_storage().data_ptr() for z in out}
+    ptrs.add(h._graph.x.untyped_storage().data_ptr())
+    assert len(ptrs) == len(out) + 1
+
+
+def test_cycle_graph_solve_matches_eager_solve(device):
+    """BiCGStab preconditioned by the replayed cycle: x bitwise and the
+    count equal to the solve preconditioned by the eager cycle."""
+    h = graph_case("poisson1000", device)
+    a = h.levels[0].a
+    b = pad_vector(np.random.RandomState(6).rand(a.nrows), a.npad,
+                   torch.float32, device)
+    eager = krylov.bicgstab(h.matvec, b, lambda v: _cycle(h, 0, v),
+                            tol=1e-6, maxiter=200)
+    tracer = timing.PhaseTimer(device=device)
+    with timing.tracing(tracer):
+        graphed = krylov.bicgstab(h.matvec, b, h.precondition, tol=1e-6,
+                                  maxiter=200)
+    assert eager.status == graphed.status == 0
+    assert graphed.iterations == eager.iterations
+    assert torch.equal(graphed.x, eager.x)
+    # two calls an iteration: the first eager, the second captures
+    assert tracer.counters == {"kcycle.eager": 1, "kcycle.capture": 1,
+                               "kcycle.replay": 2 * eager.iterations - 2,
+                               "host_reads": eager.iterations + 1}
+
+
+def test_cycle_graph_not_on_a_row_mesh(device):
+    """A hierarchy sharded over a one-process row mesh runs every call
+    eagerly on the card."""
+    h = shard_hierarchy(graph_case("csky3d20", device), RowMesh(2, device))
+    b = torch.rand(h.levels[0].a.npad, device=device)
+    out, counters = traced_calls(h, [b, b, b])
+    assert counters == {"kcycle.eager": 3}
+    assert h._graph is None
+
+
+def test_cycle_graph_capture_holds_off_the_collector(device, monkeypatch):
+    """A dropped hierarchy in a reference cycle, with its graph captured,
+    stays alive through another hierarchy's capture: were the cyclic
+    collector to free its graph there (it runs at any allocation while
+    it is enabled), that capture would be invalidated."""
+    base = graph_case("csky3d20", device)
+    b = torch.rand(base.levels[0].a.npad, device=device)
+    old = dataclasses.replace(base)
+    old.precondition = lambda v, call=old.precondition: call(v)
+    old.precondition(b)
+    old.precondition(b)
+    assert old._graph.graph is not None
+    del old
+    cycle = hierarchy_mod._cycle
+
+    def collecting_cycle(hier, idx, v):
+        if gc.isenabled() and torch.cuda.is_current_stream_capturing():
+            gc.collect()
+        return cycle(hier, idx, v)
+
+    monkeypatch.setattr(hierarchy_mod, "_cycle", collecting_cycle)
+    try:
+        h = dataclasses.replace(base)
+        out, counters = traced_calls(h, [b, b, b])
+    finally:
+        gc.collect()
+    assert counters == {"kcycle.eager": 1, "kcycle.capture": 1,
+                        "kcycle.replay": 1}
+    want = cycle(base, 0, b)
+    assert all(torch.equal(z, want) for z in out)

@@ -2,6 +2,7 @@
 preconditioner and BiCGStab on the JAX setup carried over through
 ``interop.py``, the whole slice end to end, and the Krylov and smoother
 building blocks."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -22,10 +23,13 @@ from multigridsolver_tpu.utils.config import (AggregationConfig,
                                               HierarchyConfig)
 from multigridsolver_tpu_torch import interop
 from multigridsolver_tpu_torch.cli import generators as tgen
+from multigridsolver_tpu_torch.parallel import RowMesh, shard_hierarchy
 from multigridsolver_tpu_torch.setup.aggregation import build_amg_setup \
     as t_setup
-from multigridsolver_tpu_torch.setup.galerkin import galerkin_pair_ell
+from multigridsolver_tpu_torch.setup.galerkin import (galerkin_ell,
+                                                      galerkin_pair_ell)
 from multigridsolver_tpu_torch.setup.prolongation import labels_from_p_csr
+from multigridsolver_tpu_torch.solve import hierarchy as thier
 from multigridsolver_tpu_torch.solve import krylov
 from multigridsolver_tpu_torch.solve import smoothers as tsm
 from multigridsolver_tpu_torch.solve.api import pad_vector, solve_hierarchy
@@ -33,6 +37,7 @@ from multigridsolver_tpu_torch.solve.hierarchy import (build_hierarchy,
                                                        make_coarse_solve)
 from multigridsolver_tpu_torch.sparse import ops as tops
 from multigridsolver_tpu_torch.utils import config as tcfg
+from multigridsolver_tpu_torch.utils import timing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_GRID = 128
@@ -229,6 +234,61 @@ class TestSmoothers:
                                                            b[:81]),
                                    rtol=1e-12)
         assert not x[88:].any()
+
+
+def two_level_hierarchy():
+    """poisson2d(16) in f64 over aggregates of 4 rows, the bench's
+    cycle."""
+    a = tgen.poisson2d(16).to_ell(dtype=torch.float64, device="cpu")
+    lab = torch.full((a.npad,), -1, dtype=torch.int32)
+    lab[:256] = torch.arange(256, dtype=torch.int32) // 4
+    return build_hierarchy(a, [lab], [galerkin_ell(a, lab, 64)], **HIER)
+
+
+def traced_calls(hier, b, calls=3):
+    """``calls`` precondition calls under a tracer: the results and the
+    tracer's counters."""
+    tracer = timing.PhaseTimer()
+    with timing.tracing(tracer):
+        out = [hier.precondition(b) for _ in range(calls)]
+    return out, tracer.counters
+
+
+class TestCycleGraph:
+    """``Hierarchy.precondition`` replays a CUDA graph only on the card:
+    on the CPU and on a row mesh every call runs the cycle eagerly, and a
+    copy of a hierarchy starts without a graph."""
+
+    def test_cpu_hierarchy_never_captures(self):
+        h = two_level_hierarchy()
+        b = torch.from_numpy(np.random.RandomState(3).rand(
+            h.levels[0].a.npad))
+        out, counters = traced_calls(h, b)
+        assert counters == {"kcycle.eager": 3}
+        want = thier._cycle(h, 0, b)
+        assert all(torch.equal(z, want) for z in out)
+        assert h._graph is None
+
+    def test_row_mesh_hierarchy_stays_eager(self):
+        h = two_level_hierarchy()
+        hs = shard_hierarchy(h, RowMesh(2, "cpu"))
+        assert not thier._bound_to_mesh(h)
+        assert thier._bound_to_mesh(hs)
+        b = torch.from_numpy(np.random.RandomState(4).rand(
+            hs.levels[0].a.npad))
+        _, counters = traced_calls(hs, b)
+        assert counters == {"kcycle.eager": 3}
+        assert hs._graph is None
+
+    def test_copies_carry_no_graph(self):
+        h = two_level_hierarchy()
+        # as after a first call on the card
+        h._graph = thier.CycleGraph(torch.zeros(h.levels[0].a.npad,
+                                                dtype=torch.float64))
+        assert dataclasses.replace(h)._graph is None
+        assert shard_hierarchy(h, RowMesh(2, "cpu"))._graph is None
+        assert h._graph is not None
+        assert "_graph" not in repr(h) and dataclasses.replace(h) == h
 
 
 def test_interop_setup_roundtrip(ref):
