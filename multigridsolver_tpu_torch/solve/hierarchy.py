@@ -140,9 +140,9 @@ class Hierarchy:
         holds the level tensors it was captured on, so a level is
         changed on a copy (``dataclasses.replace``), never in place.
         Counters ``kcycle.eager``, ``kcycle.capture`` and
-        ``kcycle.replay`` count the calls by kind; ``level`` and
-        ``coarse_solve`` spans appear only where the cycle's Python runs
-        (eager and capturing calls)."""
+        ``kcycle.replay`` count the calls by kind; ``level``, ``smooth``
+        and ``coarse_solve`` spans (and the smoothers' counters) appear
+        only where the cycle's Python runs (eager and capturing calls)."""
         with timing.span("precondition"):
             graph = self._graph
             if graph is not None and graph.takes(b):
@@ -241,6 +241,16 @@ def _cycle(hier: Hierarchy, idx: int, b: torch.Tensor) -> torch.Tensor:
         return _level_cycle(hier, idx, b)
 
 
+def _smooth(level: Level, idx: int, b: torch.Tensor,
+            x: torch.Tensor | None = None) -> torch.Tensor:
+    """One smoothing application on level ``idx`` (from zero when ``x``
+    is None), inside a ``smooth`` span."""
+    with timing.span("smooth", idx):
+        if x is None:
+            return level.smoother.solve(level.a, b)
+        return level.smoother.apply(level.a, b, x)
+
+
 def _level_cycle(hier: Hierarchy, idx: int,
                  b: torch.Tensor) -> torch.Tensor:
     level = hier.levels[idx]
@@ -248,19 +258,19 @@ def _level_cycle(hier: Hierarchy, idx: int,
     if hier.combination == "additive":
         # the coarse correction and the smoother both act on b, summed
         return (_coarse_correct(level, hier, idx, b)
-                + level.smoother.solve(a, b))
+                + _smooth(level, idx, b))
     if hier.pre_smooth == 0:
         # coarse-grid correction of b itself, then post-smoothing: the
         # multiplicative two-level combination c + S(b − A c)
         x = _coarse_correct(level, hier, idx, b)
     else:
-        x = level.smoother.solve(a, b)
+        x = _smooth(level, idx, b)
         for _ in range(hier.pre_smooth - 1):
-            x = level.smoother.apply(a, b, x)
+            x = _smooth(level, idx, b, x)
         r = b - ops.spmv(a, x)
         x = x + _coarse_correct(level, hier, idx, r)
     for _ in range(hier.post_smooth):
-        x = level.smoother.apply(a, b, x)
+        x = _smooth(level, idx, b, x)
     return x
 
 
@@ -333,7 +343,7 @@ def build_hierarchy(a: ELL, level_labels: list[torch.Tensor],
         sm = make_smoother(op, kind=smoother_kind, ell=fine,
                            lmax=None if lmax is None else lmax[l],
                            state=None if smoother_state is None
-                           else smoother_state[l], **smoother_kw)
+                           else smoother_state[l], level=l, **smoother_kw)
         levels.append(Level(a=op, labels=lab, smoother=sm, tplan=tplan,
                             nc_pad=coarse.npad))
     return Hierarchy(levels=tuple(levels),

@@ -31,6 +31,7 @@ import torch
 
 from ..sparse import hybrid, ops
 from ..sparse.formats import ELL
+from ..utils import timing
 
 KINDS = ("jacobi", "l1jacobi", "chebyshev", "gs2", "ilu0")
 
@@ -246,7 +247,9 @@ def ilu_apply(a, lmat: ELL, umat: ELL, udiag: torch.Tensor, b: torch.Tensor,
     """x ← x + M⁻¹(b − A x) with M = L·U from :func:`ilu0_factor`.  Both
     triangular solves are Jacobi (truncated Neumann) iterations, as in
     gs2: z ← r − L z converges because L is strictly lower, likewise the
-    U sweep with its diagonal scaled out."""
+    U sweep with its diagonal scaled out.  Counts its triangular SpMVs
+    (``ilu0.tri_spmv``) on the installed tracer."""
+    timing.count("ilu0.tri_spmv", 2 * inner * sweeps)
     duinv = 1.0 / udiag
     for _ in range(sweeps):
         r = b - ops.spmv(a, x)
@@ -308,7 +311,8 @@ def make_smoother(a, kind: str = "chebyshev", sweeps: int = 2,
                   lmin_frac: float = 0.3, inner_sweeps: int = 2,
                   lmax_safety: float = 1.1, ell: ELL | None = None,
                   factor_sweeps: int = 5, lmax: float | None = None,
-                  state: dict | None = None) -> Smoother:
+                  state: dict | None = None,
+                  level: int | None = None) -> Smoother:
     """The smoother of ``kind`` for the level operator ``a``.
 
     ``ell``: the pure-ELL view of ``a`` that ``ilu0`` factors (``a``
@@ -317,7 +321,8 @@ def make_smoother(a, kind: str = "chebyshev", sweeps: int = 2,
     example carried over from another implementation; estimated by power
     iteration when None.  ``state``: tensors carried over in place of the
     computed ones: ``d``, and for ``ilu0`` the factors ``lvals``,
-    ``uvals``, ``udiag``."""
+    ``uvals``, ``udiag``.  ``level``: the level the factorisation's span
+    (``ilu0.factor``) is recorded at."""
     if kind not in KINDS:
         raise ValueError(f"unknown smoother kind {kind!r}; one of {KINDS}")
     state = state or {}
@@ -344,7 +349,8 @@ def make_smoother(a, kind: str = "chebyshev", sweeps: int = 2,
             lvals, uvals, udiag = (state[k] for k in ("lvals", "uvals",
                                                       "udiag"))
         else:
-            lvals, uvals, udiag = ilu0_factor(src, sweeps=factor_sweeps)
+            with timing.span("ilu0.factor", level):
+                lvals, uvals, udiag = ilu0_factor(src, sweeps=factor_sweeps)
         sm.lmat = dataclasses.replace(src, vals=lvals, vals_t=None)
         sm.umat = dataclasses.replace(src, vals=uvals, vals_t=None)
         sm.udiag = udiag

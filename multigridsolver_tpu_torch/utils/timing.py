@@ -15,6 +15,10 @@ work happens:
   (``.tolist()``, or a numpy array), which counts ``host_reads`` and
   records a ``host_read`` span (or the span its caller names).
 
+A tracer made with ``device_spans`` also records a CUDA event at each
+end of every span of those names (no synchronise, never inside a graph
+capture): :meth:`PhaseTimer.device_seconds` gives their device time.
+
 With no tracer installed :func:`span` returns one shared no-op context
 manager and :func:`count` and :func:`read` do no more than their plain
 work: one global load and one comparison each, nothing allocated,
@@ -95,6 +99,23 @@ class _Span:
         return False
 
 
+class _EventSpan(_Span):
+    """A span that also records a CUDA event at each end."""
+
+    __slots__ = ("start",)
+
+    def __enter__(self):
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.tracer.events.append((self.name, self.level, self.start, end))
+        return super().__exit__(*exc)
+
+
 def _key(name: str, level):
     return name if level is None else (name, level)
 
@@ -111,15 +132,21 @@ class PhaseTimer:
     and span, keyed by name (``(name, level)`` for a span with a level),
     in the order they first ended; ``records`` every span as ``(name,
     level, t0, t1)``; ``counters`` the counters; ``marker`` the host
-    stamp of the last marker launched (None off the card)."""
+    stamp of the last marker launched (None off the card).
+    ``device_spans``: span names that also record CUDA events, kept in
+    ``events`` as ``(name, level, start, end)`` (on a CUDA device)."""
 
-    def __init__(self, device: torch.device | str | None = None):
+    def __init__(self, device: torch.device | str | None = None,
+                 device_spans: tuple[str, ...] = ()):
         self.device = None if device is None else torch.device(device)
         self.times: dict = {}
         self.counts: dict = {}
         self.records: list[tuple[str, int | None, float, float]] = []
         self.counters: dict[str, int] = {}
         self.marker: float | None = None
+        on_card = self.device is not None and self.device.type == "cuda"
+        self.device_spans = frozenset(device_spans if on_card else ())
+        self.events: list = []
 
     def _sync(self) -> None:
         if self.device is not None and self.device.type == "cuda":
@@ -145,8 +172,24 @@ class PhaseTimer:
         self._add(_key(name, level), t1 - t0)
 
     def span(self, name: str, level: int | None = None) -> _Span:
-        """A span that stamps the host's clock on entry and exit."""
+        """A span that stamps the host's clock on entry and exit (and
+        records a CUDA event at each for a name among ``device_spans``,
+        outside a graph capture)."""
+        if name in self.device_spans \
+                and not torch.cuda.is_current_stream_capturing():
+            return _EventSpan(self, name, level)
         return _Span(self, name, level)
+
+    def device_seconds(self, name: str) -> dict:
+        """The device time between the two events of every span ``name``
+        recorded with events, summed by level (waits for them)."""
+        out: dict = {}
+        for n, level, start, end in self.events:
+            if n == name:
+                end.synchronize()
+                out[level] = out.get(level, 0.0) \
+                    + start.elapsed_time(end) * 1e-3
+        return out
 
     def count(self, name: str, n: int = 1) -> None:
         self.counters[name] = self.counters.get(name, 0) + n
@@ -189,7 +232,8 @@ class PhaseTimer:
 
     def report(self) -> None:
         """One ``[time]`` line a phase or span (reads apart), each level's
-        self time, then the reads' waits and the counters."""
+        self time, the reads' waits, the device time of spans with
+        events, then the counters."""
         for key, t in self.times.items():
             if key not in READ_SPANS:
                 self._line("time", f"{_label(key)} (x{self.counts[key]})",
@@ -201,6 +245,10 @@ class PhaseTimer:
             if label in self.times:
                 self._line("read", f"{label} (x{self.counts[label]})",
                            f"{self.times[label]:.6f} s")
+        for name in dict.fromkeys(n for n, *_ in self.events):
+            for level, t in self.device_seconds(name).items():
+                self._line("time", f"{_label(_key(name, level))} (device)",
+                           f"{t:.6f} s")
         for name, n in self.counters.items():
             self._line("count", name, n)
 

@@ -784,3 +784,37 @@ def test_cycle_graph_capture_holds_off_the_collector(device, monkeypatch):
                         "kcycle.replay": 1}
     want = cycle(base, 0, b)
     assert all(torch.equal(z, want) for z in out)
+
+
+def test_ilu0_cycle_graph_and_factor_events(device):
+    """The ilu0 K-cycle (the benchmark's poisson2000ilu0 settings) at
+    poisson2d(300): every call after the capture replays, bitwise the
+    eager cycle; ``ilu0.factor`` spans with events give one positive
+    device time a level, and the factors are bitwise those built with no
+    tracer."""
+    ell = poisson2d(300).to_ell(dtype=torch.float32, device=device)
+    s = build_amg_setup(ell, bench_config())
+    kw = dict(smoother_kind="ilu0", cycle="kcycle", kcycle_depth=3,
+              pre_smooth=1, post_smooth=1, sweeps=2, inner_sweeps=2,
+              factor_sweeps=5)
+    plain = build_hierarchy(s.matrices[0], s.level_labels, s.matrices[1:],
+                            **kw)
+    tracer = timing.PhaseTimer(device=device, device_spans=("ilu0.factor",))
+    with timing.tracing(tracer):
+        h = build_hierarchy(s.matrices[0], s.level_labels, s.matrices[1:],
+                            **kw)
+    got = tracer.device_seconds("ilu0.factor")
+    assert sorted(got) == list(range(len(h.levels)))
+    assert all(t > 0 for t in got.values())
+    for lt, lp in zip(h.levels, plain.levels):
+        assert torch.equal(lt.smoother.lmat.vals, lp.smoother.lmat.vals)
+        assert torch.equal(lt.smoother.udiag, lp.smoother.udiag)
+    gen = torch.Generator(device=device).manual_seed(9)
+    bs = [torch.rand(h.levels[0].a.npad, generator=gen, device=device)
+          for _ in range(4)]
+    out, counters = traced_calls(h, bs)
+    assert counters["kcycle.replay"] == len(bs) - 2
+    # the smoother's counter is seen on the eager and capturing calls only
+    assert counters["ilu0.tri_spmv"] > 0
+    for b, z in zip(bs, out):
+        assert torch.equal(z, _cycle(h, 0, b))
